@@ -5,18 +5,33 @@
 Phases, each printing its result on its own line:
 
 1. environment: torch / CUDA / nvcc versions, card name and power limit;
-2. build: both hand-written CUDA kernels and the native host library, from
-   this checkout's sources;
+2. build: the hand-written CUDA kernels (one nvcc per source, all started
+   together) and the native host library, from this checkout's sources;
 3. kernels: kernel A (adaptor direction DP) and kernel B (banded pair DP)
-   against their plain PyTorch versions on the card, at the pipeline's
-   shapes; directions and scores must be equal; CUDA-event times for both;
+   at the pipeline's shapes, then kernel C (score-only DP) and kernel D
+   (multi-segment score-only DP) at the demux shapes of bench.py:207-240,
+   each against its plain PyTorch version on the card; directions and
+   scores must be equal; CUDA-event times for all four;
 4. golden: the seed-locked mock pipeline of tests/test_golden_pipeline.py
    through the port's five entry points on the card, compared key by key
    with tests/golden/pipeline_mock.json;
 5. pipeline: the ~10k-read workload of bench.py (950 molecules, 8-14 reads
    each, 400-700 bp, seed 7, 12 bp UMI): one warm-up pass that also times
    the plain-PyTorch device steps, then one timed pass with per-stage
-   seconds and the kernels' launch counts.
+   seconds and the kernels' launch counts;
+6. golden demux: tests/golden/barcode_demux.json through adaptor_align ->
+   barcode_align -> get_barcode_thresholds on the card;
+7. demux: bench.py::bench_demux's pass (100 000 random 250-bp ends against
+   both adaptors, one kernel-D launch per batch, strand resolution, then
+   12 barcodes against 100 000 observed 12-bp reads in one kernel-D
+   launch): one warm-up pass with synchronized step timers, one timed
+   pass with reads/s and launch counts;
+8. calibration: tune_alignment, get_adaptor_thresholds, filter_reads,
+   extract_subseq and quality_align on the phase-5 batch and its aligned
+   frame: one warm-up pass with synchronized step timers, one timed pass
+   with the launch counts, then its outputs compared with the same calls on
+   ``device="cpu"`` (tune_alignment on a 400-read slice: its plain CPU
+   run at full size would take many minutes).
 
 The second-to-last line is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -57,6 +72,16 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def equal_scores(torch, what, got, want) -> float:
+    """Scores must be equal (tolerance 0); returns max |diff| over finite entries."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"{what}: scores differ from the plain version ({bad} entries)")
+    fin = torch.isfinite(got)
+    return float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
 def compare(torch, what, dirs_k, dirs_p, s_k, s_p) -> float:
     """Directions must be bit-equal and scores equal (tolerance 0).
 
@@ -66,10 +91,7 @@ def compare(torch, what, dirs_k, dirs_p, s_k, s_p) -> float:
     if not torch.equal(dirs_k, dirs_p):
         bad = int((dirs_k != dirs_p).sum())
         raise AssertionError(f"{what}: directions differ from the plain version in {bad} cells")
-    if not torch.equal(s_k, s_p):
-        raise AssertionError(f"{what}: scores differ from the plain version")
-    fin = torch.isfinite(s_k) & torch.isfinite(s_p)
-    return float((s_k[fin] - s_p[fin]).abs().max()) if bool(fin.any()) else 0.0
+    return equal_scores(torch, what, s_k, s_p)
 
 
 def mock_batch(st, adaptor1, **kw):
@@ -98,18 +120,21 @@ def phase_environment(torch):
     return smi
 
 
-def phase_build():
-    from sarlacc_tpu_torch.native import get_lib
-    from sarlacc_tpu_torch.ops.cuda_align import DIR_KERNEL
-    from sarlacc_tpu_torch.ops.cuda_msa import PAIR_KERNEL
+def phase_build(kernels):
+    """Every build at once: one nvcc per CUDA source, and g++ for the host."""
+    from concurrent.futures import ThreadPoolExecutor
 
+    from sarlacc_tpu_torch.native import get_lib
+
+    by_source = {k.source: k for k in kernels}
     t0 = time.perf_counter()
-    for kernel in (DIR_KERNEL, PAIR_KERNEL):
-        kernel.build()
-    t1 = time.perf_counter()
-    get_lib()
-    t2 = time.perf_counter()
-    log(f"[build] cuda kernels {t1 - t0:.2f} s, host library {t2 - t1:.2f} s")
+    with ThreadPoolExecutor(len(by_source) + 1) as pool:
+        jobs = [pool.submit(k.build) for k in by_source.values()] + [pool.submit(get_lib)]
+        for job in jobs:
+            job.result()
+    names = ", ".join(os.path.basename(src) for src in by_source)
+    log(f"[build] {names} and the host library, in parallel: "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernels(torch, st, batch, dev, max_pairs=4096):
@@ -182,6 +207,91 @@ def phase_kernels(torch, st, batch, dev, max_pairs=4096):
     log(f"[kernels] B pairs: P={P} rows={rows} W={W}: dirs equal, max|dscore|={err}, "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
     rows_out.append(("B", "pairs", err, ms, plain_ms))
+    return rows_out
+
+
+def random_reads(n, length, seed):
+    """bench.py::_random_reads, as a port SeqBatch."""
+    import numpy as np
+
+    from sarlacc_tpu_torch.core.encode import SeqBatch
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (n, length)).astype(np.int8)
+    lengths = np.full(n, length, dtype=np.int64)
+    quals = rng.integers(20, 60, (n, length)).astype(np.uint8) + 33
+    return SeqBatch(codes, lengths, quals, None)
+
+
+def demux_inputs(n_reads=100_000, tolerance=250, n_barcodes=12, bc_len=12, seed=3):
+    """bench.py::bench_demux's inputs: two 250-bp end batches, 12 barcodes
+    and 100 000 observed barcode reads, all from numpy seed 3."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 2)
+    barcodes = ["".join(rng.choice(list("ACGT"), bc_len)) for _ in range(n_barcodes)]
+    return {
+        "front": random_reads(n_reads, tolerance, seed),
+        "back": random_reads(n_reads, tolerance, seed + 1),
+        "barcodes": barcodes,
+        "observed": random_reads(n_reads, bc_len, seed + 3),
+    }
+
+
+def phase_score_kernels(torch, st, demux, dev):
+    """Kernels C and D against their plain versions at the demux shapes."""
+    from sarlacc_tpu_torch.api.align_internal import prepare_adaptor, prepare_scores_input
+    from sarlacc_tpu_torch.ops.align import dp_scores, dp_scores_segments
+    from sarlacc_tpu_torch.ops.cuda_align import (
+        encode_mask, pack_segments, score_kernel, segments_kernel,
+    )
+
+    rows_out = []
+    a1 = prepare_adaptor(ADAPTOR1_BENCH, device=dev)
+    a2 = prepare_adaptor(ADAPTOR2, device=dev)
+    front = prepare_scores_input(a1, demux["front"])
+    l1, n_pad = front.plane_geometry()
+    planes, lengths, N = front.planes(), front.lengths, front.n
+    idx = lengths.to(torch.int64)[None, :]
+
+    for name, ad in (("adaptor1", a1), ("adaptor2", a2)):
+        args = (ad.modes, encode_mask(ad.matched), 5.0, 1.0, *planes)
+
+        def kern(args=args):
+            return score_kernel(*args, lengths, True)
+
+        def plain(args=args):
+            return dp_scores(*args, True)[:, :N].gather(0, idx)[0]
+
+        err = equal_scores(torch, f"kernel C ({name})", kern(), plain())
+        ms = cuda_ms(torch, kern, 5)
+        plain_ms = cuda_ms(torch, plain, 2)
+        log(f"[kernels] C {name}: N={N} l1={l1} R={len(ad)} local: scores equal, "
+            f"max|dS|={err}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        rows_out.append(("C", name, err, ms, plain_ms))
+
+    def seg_row(name, prepared, segments):
+        l1_, n_pad_ = prepared.plane_geometry()
+        modes, mask, segs = pack_segments(segments, dev)
+        lens_k = torch.zeros(n_pad_, dtype=torch.int32, device=dev)
+        lens_k[: prepared.n] = prepared.lengths
+        args = (modes, mask, segs, *prepared.planes(), lens_k)
+        err = equal_scores(torch, f"kernel D ({name})", segments_kernel(*args),
+                           dp_scores_segments(*args))
+        ms = cuda_ms(torch, lambda: segments_kernel(*args), 5)
+        plain_ms = cuda_ms(torch, lambda: dp_scores_segments(*args), 2)
+        log(f"[kernels] D {name}: N={prepared.n} l1={l1_} nseg={len(segs)} "
+            f"R={[r for _, r, *_ in segs]}: scores equal (padded lanes included), "
+            f"max|dS|={err}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        rows_out.append(("D", name, err, ms, plain_ms))
+
+    seg_row("adaptors", front, [
+        (a1.modes, a1.matched, 5.0, 1.0, True), (a2.modes, a2.matched, 5.0, 1.0, True),
+    ])
+    del front, planes
+    bcs = [prepare_adaptor(b, device=dev) for b in demux["barcodes"]]
+    seg_row("barcodes", prepare_scores_input(bcs[0], demux["observed"]),
+            [(b.modes, b.matched, 5.0, 1.0, False) for b in bcs])
     return rows_out
 
 
@@ -269,18 +379,53 @@ STEPS = (
 )
 
 
-def timed_steps(torch):
-    """Wrap each step with synchronized wall timers; returns (totals, undo)."""
+#: Steps timed in the calibration warm-up pass: the kernels' wrappers as
+#: each entry point calls them, the plane builds and uploads, the walks and
+#: the host statistics.
+CAL_STEPS = (
+    ("sarlacc_tpu_torch.api.tune", "scramble_input"),
+    ("sarlacc_tpu_torch.api.tune", "fit_scores_segments"),
+    ("sarlacc_tpu_torch.api.tune", "resolve_strand"),
+    ("sarlacc_tpu_torch.api.tune", "tied_overlap"),
+    ("sarlacc_tpu_torch.api.align_internal", "prepare_reads"),
+    ("sarlacc_tpu_torch.api.align_internal", "PreparedReads.planes"),
+    ("sarlacc_tpu_torch.api.align_internal", "fit_scores_from_planes"),
+    ("sarlacc_tpu_torch.api.align_internal", "fit_dirs"),
+    ("sarlacc_tpu_torch.api.align_internal", "qmap_walk"),
+    ("sarlacc_tpu_torch.api.quality_align", "fit_dirs"),
+    ("sarlacc_tpu_torch.api.quality_align", "string_walk"),
+    ("sarlacc_tpu_torch.api.quality_align", "assemble_strings"),
+)
+
+#: Steps timed in the demux warm-up pass.
+DEMUX_STEPS = (
+    ("sarlacc_tpu_torch.ops.cuda_align", "fit_scores_segments"),
+    ("sarlacc_tpu_torch.api.barcode", "fit_scores_segments"),
+    ("sarlacc_tpu_torch.api.barcode", "prepare_scores_input"),
+    ("sarlacc_tpu_torch.api.align_internal", "PreparedReads.planes"),
+)
+
+
+def timed_steps(torch, steps=STEPS, qualify=False):
+    """Wrap each step with synchronized wall timers; returns (totals, undo).
+
+    Totals are keyed by the step's name, or by ``module.name`` when
+    ``qualify`` (two modules may import one function under one name).
+    """
     import importlib
 
     totals: dict[str, list] = {}
     undo = []
-    for mod_name, attr in STEPS:
-        mod = importlib.import_module(mod_name)
-        orig = getattr(mod, attr)
-        totals[attr] = [0.0, 0]
+    for mod_name, attr in steps:
+        owner = importlib.import_module(mod_name)
+        *path, name = attr.split(".")
+        for part in path:
+            owner = getattr(owner, part)
+        orig = getattr(owner, name)
+        key = f"{mod_name.rsplit('.', 1)[1]}.{attr}" if qualify else attr
+        totals[key] = [0.0, 0]
 
-        def wrapped(*a, _orig=orig, _acc=totals[attr], **kw):
+        def wrapped(*a, _orig=orig, _acc=totals[key], **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = _orig(*a, **kw)
@@ -289,14 +434,21 @@ def timed_steps(torch):
             _acc[1] += 1
             return out
 
-        setattr(mod, attr, wrapped)
-        undo.append((mod, attr, orig))
+        setattr(owner, name, wrapped)
+        undo.append((owner, name, orig))
 
     def restore():
-        for mod, attr, orig in undo:
-            setattr(mod, attr, orig)
+        for owner, name, orig in undo:
+            setattr(owner, name, orig)
 
     return totals, restore
+
+
+def step_report(totals) -> str:
+    return ", ".join(
+        f"{k} {v[0]:.3f} s/{v[1]} calls"
+        for k, v in sorted(totals.items(), key=lambda kv: -kv[1][0])
+    )
 
 
 def phase_pipeline(torch, st, batch, kernels, dev):
@@ -307,17 +459,14 @@ def phase_pipeline(torch, st, batch, kernels, dev):
         warm_s = time.perf_counter() - t0
     finally:
         restore()
-    steps = ", ".join(
-        f"{k} {v[0]:.3f} s/{v[1]} calls"
-        for k, v in sorted(totals.items(), key=lambda kv: -kv[1][0])
-    )
-    log(f"[pipeline] warm-up pass {warm_s:.3f} s; synchronized step times: {steps}")
+    log(f"[pipeline] warm-up pass {warm_s:.3f} s; synchronized step times: "
+        f"{step_report(totals)}")
 
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     timings: list = []
-    _, _, groups, msa, cons = run_pipeline(torch, st, batch, ADAPTOR1_BENCH, dev, timings)
+    aligned, _, groups, msa, cons = run_pipeline(torch, st, batch, ADAPTOR1_BENCH, dev, timings)
     counts = {k.symbol: k.launches for k in kernels}
     stages = {
         name: timings[i][1] - timings[i - 1][1] for i, (name, _) in enumerate(timings) if i
@@ -336,6 +485,210 @@ def phase_pipeline(torch, st, batch, kernels, dev):
         f"consensus reads: {total:.3f} s = {len(batch) / total:.1f} reads/s; stages "
         + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
         + f"; peak allocated {peak:.2f} GiB; launches {counts}")
+    return counts, aligned
+
+
+def phase_golden_demux(torch, st, kernel_d, dev):
+    """tests/golden/barcode_demux.json (tests/test_golden_suite.py:127-156)."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    barcodes = ["".join(rng.choice(list("ACGT"), 4)) for _ in range(6)]
+    fp = tempfile.mktemp(suffix=".fastq")
+    try:
+        st.mock_reads(ADAPTOR1_GOLDEN, ADAPTOR2, fp, all_barcodes=barcodes, nmolecules=12,
+                      nreads_range=(3, 6), seqlen_range=(300, 500), seed=42)
+        batch = st.read_fastq(fp)
+    finally:
+        os.remove(fp)
+    kernel_d.launches = 0
+    aligned = st.adaptor_align(ADAPTOR1_GOLDEN, ADAPTOR2, reads=batch, tolerance=200, device=dev)
+    observed = aligned["adaptor1"]["subseq"]["Sub1"]
+    baligned = st.barcode_align(observed, barcodes, device=dev)
+    thr = st.get_barcode_thresholds(baligned, nmads=3, device=dev)
+    launches = kernel_d.launches
+    snap = {
+        "barcodes": barcodes,
+        "observed": observed.seq_strings(),
+        "assigned": [int(b) for b in baligned["barcode"]],
+        "score": [round(float(s), 4) for s in baligned["score"]],
+        "gap": [round(float(g), 4) for g in baligned["gap"]],
+        "thr_score": round(thr["score"], 4),
+        "thr_gap": round(thr["gap"], 4),
+    }
+    with open(os.path.join(HERE, "tests", "golden", "barcode_demux.json")) as fh:
+        want = json.load(fh)
+    if sorted(snap) != sorted(want):
+        raise AssertionError(f"golden demux keys differ: {sorted(snap)} vs {sorted(want)}")
+    bad = [key for key in want if snap[key] != want[key]]
+    if bad:
+        raise AssertionError(f"golden demux mismatch on the card in {bad}")
+    if launches == 0:
+        raise AssertionError("kernel D never launched in the golden demux run")
+    log(f"[golden-demux] {len(want)} keys equal tests/golden/barcode_demux.json "
+        f"({len(batch)} reads, {len(barcodes)} barcodes); kernel D launches {launches}")
+
+
+def phase_demux(torch, st, demux, kernels, dev):
+    """bench.py::bench_demux's pass on the card: warm-up, then one timed pass."""
+    import numpy as np
+
+    import sarlacc_tpu_torch.ops.cuda_align as ca
+    from sarlacc_tpu_torch.api.align_internal import (
+        prepare_adaptor, prepare_scores_input, resolve_strand,
+    )
+
+    a1 = prepare_adaptor(ADAPTOR1_BENCH, device=dev)
+    a2 = prepare_adaptor(ADAPTOR2, device=dev)
+    # One upload and one plane build per batch, before the pass, as the bench.
+    pfront = prepare_scores_input(a1, demux["front"])
+    pback = prepare_scores_input(a1, demux["back"])
+    l1, n_pad = pfront.plane_geometry()
+    segs = [(a1.modes, a1.matched, 5.0, 1.0, True), (a2.modes, a2.matched, 5.0, 1.0, True)]
+    n = pfront.n
+
+    def one_pass():
+        sf = ca.fit_scores_segments(pfront.planes(), pfront.lengths, segs, l1, n_pad)
+        sb = ca.fit_scores_segments(pback.planes(), pback.lengths, segs, l1, n_pad)
+        s = torch.cat([sf, sb]).cpu().numpy().astype(np.float64)  # one readback
+        is_rev, final = resolve_strand(s[0], s[3], s[2], s[1])
+        bal = st.barcode_align(demux["observed"], demux["barcodes"], device=dev)
+        return s, is_rev, bal
+
+    totals, restore = timed_steps(torch, DEMUX_STEPS, qualify=True)
+    try:
+        t0 = time.perf_counter()
+        warm = one_pass()
+        warm_s = time.perf_counter() - t0
+    finally:
+        restore()
+    log(f"[demux] warm-up pass {warm_s:.3f} s (the planes of both end batches built "
+        f"in it); synchronized step times: {step_report(totals)}")
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, is_rev, bal = one_pass()
+    elapsed = time.perf_counter() - t0
+    counts = {k.symbol: k.launches for k in kernels}
+    if counts["sarlacc_segments_kernel"] != 3:
+        raise AssertionError(f"the demux pass should take 3 kernel-D launches: {counts}")
+    if s.shape != (4, n) or not np.isfinite(s).all():
+        raise AssertionError("demux scores are not finite [4, n]")
+    ids = np.asarray(bal["barcode"])
+    if ids.shape != (n,) or ids.min() < 0 or ids.max() >= len(demux["barcodes"]):
+        raise AssertionError("barcode ids out of range")
+    if not (np.array_equal(s, warm[0]) and np.array_equal(ids, warm[2]["barcode"])
+            and np.array_equal(bal["gap"], warm[2]["gap"])):
+        raise AssertionError("the timed demux pass differs from the warm-up pass")
+    cells = n * 250 * 2 * (len(a1) + len(a2)) + n * 12 * 12 * len(demux["barcodes"])
+    log(f"[demux] {n} reads x 2 ends x (R={len(a1)}, {len(a2)}) + {len(demux['barcodes'])} "
+        f"barcodes: {elapsed:.3f} s = {n / elapsed:.1f} reads/s ({cells / elapsed / 1e9:.2f} "
+        f"GCUPS over the pass); {int(is_rev.sum())} reversed; launches {counts}")
+    return counts
+
+
+def phase_calibration(torch, st, batch, aligned, kernels, dev):
+    """The calibration entry points on the card, timed, each compared with
+    the same call on the CPU (plain versions); tolerance 0."""
+    import numpy as np
+
+    def timed(name, fn, out):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        return res
+
+    def same(what, got, want):
+        ok = (
+            np.array_equal(np.asarray(got), np.asarray(want), equal_nan=True)
+            if isinstance(got, np.ndarray) else got == want
+        )
+        if not ok:
+            raise AssertionError(f"calibration: {what} differs between the card and the CPU")
+
+    sections = (([16, 31], [19, 42]), ([1], [14]))
+    ref = batch.seq_strings()[0][50:550]
+    queries = batch.take(np.arange(1, 301))
+
+    def card_pass(secs):
+        tuned = timed("tune_alignment", lambda: st.tune_alignment(
+            ADAPTOR1_BENCH, ADAPTOR2, reads=batch, tolerance=250, device=dev), secs)
+        thr = timed("get_adaptor_thresholds", lambda: st.get_adaptor_thresholds(
+            aligned, reads=batch, device=dev), secs)
+        filt = timed("filter_reads", lambda: st.filter_reads(
+            aligned, thr["threshold1"], thr["threshold2"], device=dev), secs)
+        ext = timed("extract_subseq", lambda: st.extract_subseq(
+            filt, *sections, reads=batch, device=dev), secs)
+        qal = timed("quality_align", lambda: st.quality_align(queries, ref, device=dev), secs)
+        return tuned, thr, filt, ext, qal
+
+    totals, restore = timed_steps(torch, CAL_STEPS, qualify=True)
+    warm_secs: dict[str, float] = {}
+    try:
+        card_pass(warm_secs)
+    finally:
+        restore()
+    log(f"[calibration] warm-up pass {sum(warm_secs.values()):.3f} s; synchronized "
+        f"step times: {step_report(totals)}")
+
+    for k in kernels:
+        k.launches = 0
+    secs: dict[str, float] = {}
+    tuned, thr, filt, ext, qal = card_pass(secs)
+    counts = {k.symbol: k.launches for k in kernels}
+
+    params = tuned["parameters"]
+    if params["gapOpening"] is None or not (
+        np.median(tuned["scores"]["reads"]) > np.median(tuned["scores"]["scrambled"])
+    ):
+        raise AssertionError(f"tune_alignment found no separating penalties: {params}")
+    if len(filt) == 0 or len(ext["adaptor1"]["Sub2"]) != len(filt):
+        raise AssertionError("filter_reads / extract_subseq kept no reads")
+    if min(counts["sarlacc_score_kernel"], counts["sarlacc_segments_kernel"],
+           counts["sarlacc_dir_kernel"]) == 0:
+        raise AssertionError(f"a kernel never launched in the calibration run: {counts}")
+
+    # The same calls on the CPU.  tune_alignment runs on a 400-read slice
+    # (card and CPU alike): its plain run on all reads takes many minutes.
+    t0 = time.perf_counter()
+    small = batch.take(np.arange(400))
+    kw = dict(reads=small, tolerance=250)
+    t_card = st.tune_alignment(ADAPTOR1_BENCH, ADAPTOR2, device=dev, **kw)
+    t_cpu = st.tune_alignment(ADAPTOR1_BENCH, ADAPTOR2, device="cpu", **kw)
+    same("tune_alignment parameters", t_card["parameters"], t_cpu["parameters"])
+    for key in ("reads", "scrambled"):
+        same(f"tune_alignment {key} scores", t_card["scores"][key], t_cpu["scores"][key])
+    thr_cpu = st.get_adaptor_thresholds(aligned, reads=batch, device="cpu")
+    for key in ("threshold1", "threshold2"):
+        same(key, thr[key], thr_cpu[key])
+    for key in ("scores1", "scores2"):
+        same(f"{key} scrambled", thr[key]["scrambled"], thr_cpu[key]["scrambled"])
+    filt_cpu = st.filter_reads(aligned, thr["threshold1"], thr["threshold2"], device="cpu")
+    same("filter_reads rows", filt.rownames, filt_cpu.rownames)
+    same("filter_reads trim.start", filt["trim.start"], filt_cpu["trim.start"])
+    same("filter_reads trim.end", filt["trim.end"], filt_cpu["trim.end"])
+    ext_cpu = st.extract_subseq(filt, *sections, reads=batch, device="cpu")
+    for key in ("adaptor1", "adaptor2"):
+        for col in ext[key].colnames:
+            same(f"extract_subseq {key} {col}", ext[key][col].seq_strings(),
+                 ext_cpu[key][col].seq_strings())
+    qal_cpu = st.quality_align(queries, ref, device="cpu")
+    for col in ("score", "edit"):
+        same(f"quality_align {col}", qal[col], qal_cpu[col])
+    for col in ("reference", "query"):
+        same(f"quality_align {col}", list(qal[col]), list(qal_cpu[col]))
+    cpu_s = time.perf_counter() - t0
+
+    log(f"[calibration] {len(batch)} reads on the card: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+        + f"; tune picked {params} over 35 points; thresholds "
+        f"{thr['threshold1']:.4f} / {thr['threshold2']:.4f}; {len(filt)} reads kept; "
+        f"quality_align {len(queries)} reads x R={len(ref)}; launches {counts}")
+    log(f"[calibration] equal to device='cpu' (tolerance 0; tune_alignment on 400 "
+        f"reads, picked {t_cpu['parameters']}); CPU comparison {cpu_s:.1f} s")
     return counts
 
 
@@ -353,34 +706,44 @@ def main() -> int:
         print(f"chip_smoke: the sarlacc_tpu_torch package is not next to this "
               f"script ({exc})", file=sys.stderr)
         return 2
-    from sarlacc_tpu_torch.ops.cuda_align import DIR_KERNEL
+    from sarlacc_tpu_torch.ops.cuda_align import DIR_KERNEL, SCORE_KERNEL, SEGMENTS_KERNEL
     from sarlacc_tpu_torch.ops.cuda_msa import PAIR_KERNEL
 
-    kernels = (DIR_KERNEL, PAIR_KERNEL)
+    pipeline_kernels = (DIR_KERNEL, PAIR_KERNEL)
+    kernels = (DIR_KERNEL, PAIR_KERNEL, SCORE_KERNEL, SEGMENTS_KERNEL)
     smi = phase_environment(torch)
-    phase_build()
+    phase_build(kernels)
     bench = mock_batch(
         st, ADAPTOR1_BENCH, nmolecules=950, nreads_range=(8, 14),
         seqlen_range=(400, 700), seed=7,
     )
+    demux = demux_inputs()
     dev = torch.device("cuda")
     krows = phase_kernels(torch, st, bench, dev)
-    phase_golden(torch, st, kernels, dev)
-    counts = phase_pipeline(torch, st, bench, kernels, dev)
+    krows += phase_score_kernels(torch, st, demux, dev)
+    phase_golden(torch, st, pipeline_kernels, dev)
+    counts, aligned = phase_pipeline(torch, st, bench, pipeline_kernels, dev)
+    phase_golden_demux(torch, st, SEGMENTS_KERNEL, dev)
+    demux_counts = phase_demux(torch, st, demux, kernels, dev)
+    cal_counts = phase_calibration(torch, st, bench, aligned, kernels, dev)
 
+    # Each kernel's launches come from the path it serves: A and B from the
+    # correction pipeline, C from calibration, D from the demux pass.
     desc = {
-        "A": (DIR_KERNEL, "sarlacc_tpu/ops/pallas_align.py:193"),
-        "B": (PAIR_KERNEL, "sarlacc_tpu/ops/pallas_msa.py:99"),
+        "A": (DIR_KERNEL, "sarlacc_tpu/ops/pallas_align.py:193", counts),
+        "B": (PAIR_KERNEL, "sarlacc_tpu/ops/pallas_msa.py:99", counts),
+        "C": (SCORE_KERNEL, "sarlacc_tpu/ops/pallas_align.py:100", cal_counts),
+        "D": (SEGMENTS_KERNEL, "sarlacc_tpu/ops/pallas_align.py:564", demux_counts),
     }
     report = []
     for key, name, err, ms, plain_ms in krows:
-        kern, replaces = desc[key]
+        kern, replaces, path_counts = desc[key]
         report.append({
-            "name": f"{os.path.splitext(os.path.basename(kern.source))[0]}[{name}]",
+            "name": f"{kern.symbol.removeprefix('sarlacc_')}[{name}]",
             "route": "cuda",
             "source": os.path.relpath(kern.source, HERE),
             "replaces": replaces,
-            "launches": counts[kern.symbol],
+            "launches": path_counts[kern.symbol],
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,

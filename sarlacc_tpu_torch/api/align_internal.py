@@ -1,8 +1,12 @@
-"""Internal batched alignment routine shared by the adaptor-facing APIs.
+"""Internal batched alignment routines shared by the adaptor-facing APIs.
 
-Counterpart of ``sarlacc_tpu/api/align_internal.py`` (the adaptor path):
-one kernel-A launch covers the whole batch, the backtrack walks every read
-on the same device, and only the [N, R+1] query maps come back to the host.
+Counterpart of ``sarlacc_tpu/api/align_internal.py``.  The adaptor path
+(:func:`align_and_extract`): one kernel-A launch covers the whole batch, the
+backtrack walks every read on the same device, and only the [N, R+1] query
+maps come back to the host.  The score-only path (:func:`align_scores_only`,
+:class:`PreparedReads`): one upload and one cost-plane build per batch,
+shared by every adaptor, barcode and penalty pair scored against it
+(kernels C and D).
 """
 
 from __future__ import annotations
@@ -18,13 +22,16 @@ from ..core.frame import Frame
 from ..core.scoring import ScoreTables, build_score_tables
 from ..ops.align import prepare_reads, prepare_reference
 from ..ops.backtrack import qmap_walk, query_windows
-from ..ops.cuda_align import fit_dirs
+from ..ops.cuda_align import build_cost_planes, fit_dirs, fit_scores_from_planes, plane_dims
 
 __all__ = [
     "PreparedAdaptor",
+    "PreparedReads",
     "prepare_adaptor",
+    "prepare_scores_input",
     "setup_subseqs",
     "align_and_extract",
+    "align_scores_only",
     "resolve_strand",
 ]
 
@@ -67,6 +74,89 @@ def prepare_adaptor(adaptor: str, qual_type: str = "phred", device=None) -> Prep
     )
     starts, ends = setup_subseqs(adaptor)
     return PreparedAdaptor(adaptor, modes, matched, mt, mmt, starts, ends, tables)
+
+
+class PreparedReads:
+    """A device-resident read batch for repeated score-only launches.
+
+    The cost planes depend only on the reads and the quality encoding
+    (reference_align.cpp:21-52), not on the reference, so they are built
+    once here and shared by every adaptor, barcode and penalty launch
+    against this batch.  Unpacks as ``(codes, qidx, lengths), n``, as the
+    JAX package's does.
+    """
+
+    def __init__(self, codes, qidx, lengths, n: int, tables: ScoreTables):
+        self.codes = codes
+        self.qidx = qidx
+        self.lengths = lengths
+        self.n = n
+        self.tables = tables
+        self._planes = None
+
+    def __iter__(self):  # ((codes, qidx, lengths), n)
+        yield (self.codes, self.qidx, self.lengths)
+        yield self.n
+
+    def plane_geometry(self) -> tuple[int, int]:
+        return plane_dims(int(self.codes.shape[0]), int(self.codes.shape[1]))
+
+    def planes(self):
+        """Cached (costm, costmm, codes_k) planes on the batch's device."""
+        if self._planes is None:
+            dev = self.codes.device
+            l1, n_pad = self.plane_geometry()
+            self._planes = build_cost_planes(
+                self.codes,
+                self.qidx,
+                torch.as_tensor(np.asarray(self.tables.match, np.float32), device=dev),
+                torch.as_tensor(np.asarray(self.tables.mismatch, np.float32), device=dev),
+                l1,
+                n_pad,
+            )
+        return self._planes
+
+
+def prepare_scores_input(adaptor: PreparedAdaptor, batch: SeqBatch) -> PreparedReads:
+    """Upload a batch once, to ``adaptor``'s device, for repeated scoring."""
+    codes, qidx, lengths = prepare_reads(batch, adaptor.tables, device=adaptor.modes.device)
+    return PreparedReads(codes, qidx, lengths, len(batch), adaptor.tables)
+
+
+def align_scores_only(
+    adaptor: PreparedAdaptor,
+    batch: SeqBatch | None,
+    gap_opening: float,
+    gap_extension: float,
+    prepared: PreparedReads | None = None,
+    local: bool = True,
+    as_device: bool = False,
+):
+    """Batch fitting-mode (or global) scores (src/adaptor_align.cpp:79-110).
+
+    Kernel C on the card, the plain :func:`..ops.align.dp_scores` on the
+    CPU.  Pass ``prepared`` from :func:`prepare_scores_input` to reuse one
+    upload and one plane build across many launches.  ``as_device=True``
+    returns the f32 [n] tensor on the device; the default returns float64
+    numpy.
+    """
+    if prepared is None:
+        prepared = prepare_scores_input(adaptor, batch)
+    l1, n_pad = prepared.plane_geometry()
+    scores = fit_scores_from_planes(
+        prepared.planes(),
+        prepared.lengths,
+        adaptor.modes,
+        adaptor.matched,
+        float(gap_opening),
+        float(gap_extension),
+        l1,
+        n_pad,
+        local=local,
+    )[: prepared.n]
+    if as_device:
+        return scores
+    return scores.cpu().numpy().astype(np.float64)
 
 
 def align_and_extract(

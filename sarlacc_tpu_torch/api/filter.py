@@ -1,6 +1,7 @@
-"""``realize_reads`` — read materialization (R/realizeReads.R, host logic).
+"""``filter_reads`` / ``realize_reads`` — adaptor-based filtering and read
+materialization (R/filterReads.R, R/realizeReads.R — both host logic).
 
-Counterpart of ``sarlacc_tpu/api/filter.py::realize_reads``.
+Counterpart of ``sarlacc_tpu/api/filter.py``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,46 @@ from ..core.frame import Frame
 from ..device import resolve_device
 from ..io.fastq import stream_fastq
 
-__all__ = ["realize_reads"]
+__all__ = ["filter_reads", "realize_reads"]
+
+
+def filter_reads(
+    aligned: Frame,
+    score1: float,
+    score2: float,
+    essential1: bool = True,
+    essential2: bool = True,
+    device=None,
+) -> Frame:
+    """Keep reads whose essential adaptors hit; add trim.start/trim.end.
+
+    Mirrors R/filterReads.R:11-41, including dropping reads whose adaptors
+    overlap (trim interval empty).  Host work; ``device`` is checked like
+    every entry point's.
+    """
+    resolve_device(device)
+    n = len(aligned)
+    s1 = np.asarray(aligned["adaptor1"]["score"])
+    s2 = np.asarray(aligned["adaptor2"]["score"])
+
+    id1 = s1 >= score1 if essential1 else np.ones(n, bool)
+    id2 = s2 >= score2 if essential2 else np.ones(n, bool)
+    aligned = aligned.take(id1 & id2)
+
+    m = len(aligned)
+    start_point = np.ones(m, dtype=np.int64)
+    has1 = np.asarray(aligned["adaptor1"]["score"]) >= score1
+    start_point[has1] = np.asarray(aligned["adaptor1"]["end"], dtype=np.int64)[has1] + 1
+
+    end_point = np.asarray(aligned["read.width"], dtype=np.int64).copy()
+    has2 = np.asarray(aligned["adaptor2"]["score"]) >= score2
+    end_point[has2] = np.asarray(aligned["adaptor2"]["end"], dtype=np.int64)[has2] - 1
+
+    keep = start_point < end_point
+    out = aligned.take(keep)
+    out["trim.start"] = start_point[keep].astype(np.int32)
+    out["trim.end"] = end_point[keep].astype(np.int32)
+    return out
 
 
 def realize_reads(

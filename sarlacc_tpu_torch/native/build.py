@@ -9,8 +9,8 @@ Two kinds of shared object land in ``sarlacc_tpu_torch/_build/``:
   through ctypes (no PyTorch headers, so a build takes seconds).
 
 The cache key is a hash of the sources and the full command line, so a
-changed flag rebuilds.  Builds write to a per-process temporary name and
-rename into place, so concurrent test workers never load a half-written file.
+changed flag rebuilds.  Builds write to a per-thread temporary name and
+rename into place, so concurrent builds never load a half-written file.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def build_library(name: str, sources: list[str], command: list[str]) -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     proc = subprocess.run(
         command + ["-o", tmp], capture_output=True, text=True, timeout=600
     )

@@ -1,11 +1,14 @@
-"""Quality-aware affine-gap fitting DP with run-length directions (PyTorch).
+"""Quality-aware affine-gap fitting DP, with or without directions (PyTorch).
 
 Counterpart of ``sarlacc_tpu/ops/align.py``.  :func:`dp_align` is the plain
 PyTorch version of the hand-written CUDA kernel in ``csrc/dir_kernel.cu``
 (which replaces the Pallas ``_dir_kernel``): same inputs (the per-read cost
 planes of :func:`..ops.cuda_align.build_cost_planes`), same outputs, same
 float32 operations in the same association, so directions come out
-bit-identical.  Reads ride the last axis, read positions the row axis, and
+bit-identical.  :func:`dp_scores` and :func:`dp_scores_segments` are the
+plain versions of the score-only kernels in ``csrc/score_kernel.cu`` (the
+Pallas ``_kernel`` and ``_segments_kernel``), held to their bits the same
+way.  Reads ride the last axis, read positions the row axis, and
 the reference columns are a Python loop; within a column the vertical-gap
 recurrence ``V[i] = max(S[i-1] - open, V[i-1] - ext)`` is a shifted
 ``cummax`` (derivation in the JAX module).
@@ -24,9 +27,12 @@ import torch
 __all__ = [
     "NEG_INF_F32",
     "dp_align",
+    "dp_scores",
+    "dp_scores_segments",
     "prepare_reads",
     "prepare_reference",
     "prepared_from_numpy",
+    "segments_from_numpy",
 ]
 
 NEG_INF_F32 = -3.0e38  # finite stand-in for -inf; safe under further subtraction
@@ -45,6 +51,28 @@ def prepared_from_numpy(modes, matched, match_tab, mismatch_tab, device=None):
         torch.tensor(np.asarray(match_tab, np.float32), device=dev),
         torch.tensor(np.asarray(mismatch_tab, np.float32), device=dev),
     )
+
+
+def segments_from_numpy(segments, device=None):
+    """The JAX package's segment list -> the port's, on ``device``.
+
+    ``segments`` is ``[(modes [R], matched [R, 5], gap_open, gap_ext,
+    local), ...]`` with numpy (or JAX) arrays, as
+    ``sarlacc_tpu/ops/pallas_align.py::fit_scores_segments`` takes it; the
+    result holds int32/bool tensors in the same places, for
+    :func:`..ops.cuda_align.fit_scores_segments`.
+    """
+    dev = torch.device("cpu" if device is None else device)
+    return [
+        (
+            torch.tensor(np.asarray(modes, np.int32), device=dev),
+            torch.tensor(np.asarray(matched, bool).reshape(-1, 5), device=dev),
+            float(go),
+            float(ge),
+            bool(local),
+        )
+        for modes, matched, go, ge, local in segments
+    ]
 
 
 def prepare_reference(ref, tables, device=None):
@@ -88,6 +116,15 @@ def _shift_down(x: torch.Tensor, fill) -> torch.Tensor:
     return torch.cat([top, x[:-1]], dim=0)
 
 
+def _column0(local: bool, go, rge1, row0, l1: int, n: int) -> torch.Tensor:
+    """Column 0 (reference_align.cpp:65-74): zeros when fitting, else the
+    gap ramp ``-go - (i-1)*ge`` below a zero at row 0."""
+    if local:
+        return torch.zeros((l1, n), dtype=torch.float32, device=rge1.device)
+    zero = torch.zeros((), dtype=torch.float32, device=rge1.device)
+    return torch.where(row0, zero, -go - rge1).expand(l1, n).contiguous()
+
+
 def dp_align(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, local=True):
     """Plain PyTorch fitting/global DP over cost planes, with directions.
 
@@ -113,10 +150,7 @@ def dp_align(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, local=True)
     rge = rows_f * ge  # vertical-gap open ramp
     rge1 = (rows_f - 1.0) * ge  # and its closing ramp
 
-    if local:
-        S = torch.zeros((l1, n), dtype=f32, device=dev)
-    else:
-        S = torch.where(row0, zero, -go - rge1).expand(l1, n).contiguous()
+    S = _column0(local, go, rge1, row0, l1, n)
     H = torch.full((l1, n), neg, dtype=f32, device=dev)
     was_left = torch.zeros((l1, n), dtype=torch.bool, device=dev)
     ljp = torch.zeros((l1, n), dtype=torch.int32, device=dev)
@@ -176,3 +210,74 @@ def dp_align(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, local=True)
         S, H = Sn, Hn
         was_left = is_left | row0
     return S, dirs
+
+
+def dp_scores(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, local=True):
+    """Plain PyTorch score-only fitting/global DP over cost planes.
+
+    The counterpart of the Pallas ``_kernel`` (``pallas_align.py:100``) and
+    the plain version of kernel C.  Same inputs as :func:`dp_align`; no
+    direction bookkeeping, so the horizontal gap is simply
+    ``max(S - go, H - ge)`` (``pallas_align.py:149``).  Keeps ``_kernel``'s
+    float32 association: ``go = open + ext``, ``cum = (mv - go) + i*ge``,
+    ``V = shift(cummax(cum)) - (i-1)*ge``; in the last column of fitting
+    mode ``cum = mv`` and V carries no ramp.
+
+    Returns S f32 [l1, n] after the last column.
+    """
+    l1, n = codes_k.shape
+    dev = codes_k.device
+    f32 = torch.float32
+    go = torch.tensor(np.float32(gap_open) + np.float32(gap_ext), dtype=f32, device=dev)
+    ge = torch.tensor(np.float32(gap_ext), dtype=f32, device=dev)
+    neg = NEG_INF_F32
+
+    rows_f = torch.arange(l1, dtype=f32, device=dev)[:, None]
+    row0 = rows_f == 0
+    rge = rows_f * ge
+    rge1 = (rows_f - 1.0) * ge
+
+    S = _column0(local, go, rge1, row0, l1, n)
+    H = torch.full((l1, n), neg, dtype=f32, device=dev)
+    R = int(modes.shape[0])
+    modes_h = [int(m) for m in modes.tolist()]
+    mask_h = [int(m) for m in mask.tolist()]
+    for j in range(R):
+        zero_vgap = local and j == R - 1  # free trailing query gaps
+        sel = torch.bitwise_right_shift(
+            torch.tensor(mask_h[j], dtype=torch.int32, device=dev), codes_k
+        ) & 1
+        cost = torch.where(sel == 1, costm[modes_h[j] - 1], costmm[modes_h[j] - 1])
+
+        Hn = torch.maximum(S - go, H - ge)
+        M = _shift_down(S, neg) + cost
+        mv = torch.maximum(M, Hn)
+        cum = mv if zero_vgap else (mv - go) + rge
+        V = _shift_down(torch.cummax(cum, dim=0).values, neg)
+        if not zero_vgap:
+            V = V - rge1
+        S, H = torch.maximum(mv, V), Hn
+    return S
+
+
+def dp_scores_segments(modes, mask, segs, costm, costmm, codes_k, lens_k):
+    """Plain PyTorch version of kernel D (the Pallas ``_segments_kernel``).
+
+    ``modes``/``mask`` int32 [Rtot] hold every segment's columns end to end;
+    ``segs`` lists ``(start, rlen, local, gap_open, gap_ext)``; ``lens_k``
+    int32 [n] gives the row each read's score sits in (0 on padded lanes).
+    Each segment runs :func:`dp_scores` from a fresh column 0.
+
+    Returns f32 [nseg, n]: row s holds ``S[lens_k[i], i]`` of segment s.
+    """
+    idx = lens_k.to(torch.int64)[None, :]
+    out = [
+        dp_scores(
+            modes[start : start + rlen], mask[start : start + rlen],
+            gap_open, gap_ext, costm, costmm, codes_k, local,
+        ).gather(0, idx)[0]
+        for start, rlen, local, gap_open, gap_ext in segs
+    ]
+    if not out:
+        return torch.zeros((0, codes_k.shape[1]), dtype=torch.float32, device=codes_k.device)
+    return torch.stack(out)

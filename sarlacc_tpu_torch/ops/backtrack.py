@@ -1,10 +1,11 @@
 """Batched replay of the template backtrack over run-length directions.
 
-Counterpart of ``sarlacc_tpu/ops/backtrack.py`` (``qmap_walk_device`` and
-``query_windows``).  :func:`qmap_walk` walks every read at once, on the
+Counterpart of ``sarlacc_tpu/ops/backtrack.py`` (``qmap_walk_device``,
+``string_walk_device``, ``query_windows`` and ``assemble_strings``).
+:func:`qmap_walk` and :func:`string_walk` walk every read at once, on the
 device of the direction planes, one backtrack step per iteration: plain
-PyTorch, so each step is a handful of small launches.  Only the
-[N, R+1] mapping arrays leave the card.
+PyTorch, so each step is a handful of small launches.  Only the [N, R+1]
+mapping arrays, or the [N, T] emission arrays, leave the card.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["qmap_walk", "query_windows"]
+__all__ = ["assemble_strings", "qmap_walk", "query_windows", "string_walk"]
 
 #: Walk steps between checks for finished reads (each check syncs the host).
 _STEPS_PER_CHECK = 8
@@ -63,6 +64,95 @@ def qmap_walk(dirs: torch.Tensor, lengths: torch.Tensor):
             col = torch.where(write, col - 1, col)
         it += _STEPS_PER_CHECK
     return om[:, : R + 1], orow[:, : R + 1]
+
+
+def string_walk(dirs: torch.Tensor, lengths: torch.Tensor):
+    """Gapped-alignment emissions from kernel-layout directions [R, l1, n_pad].
+
+    The template backtrack of reference_align.cpp:353-389, replayed for
+    every read at once.  Per read, position t of the two [T] arrays
+    (T = R + l1 + 1) holds the reference position (0 = gap) and the query
+    position (0 = gap) of the t-th alignment column FROM THE END; ``ncols``
+    counts the columns.  Decode with :func:`assemble_strings`.  Positions
+    are int32 (the JAX package's int16 holds the same values below 32767).
+
+    Returns (a_pos int32 [n_pad, T], b_pos int32 [n_pad, T], ncols int32
+    [n_pad]); lanes past ``lengths`` walk from length 0.
+    """
+    R, l1, N = dirs.shape
+    dev = dirs.device
+    flat = dirs.reshape(R * l1, N)
+    narr = torch.arange(N, device=dev)
+    T = R + l1 + 1
+
+    col = torch.full((N,), R, dtype=torch.int64, device=dev)
+    row = torch.zeros(N, dtype=torch.int64, device=dev)
+    row[: lengths.shape[0]] = lengths.to(torch.int64)
+    rc = torch.zeros(N, dtype=torch.int64, device=dev)
+    uc = torch.zeros(N, dtype=torch.int64, device=dev)
+    t = torch.zeros(N, dtype=torch.int64, device=dev)
+    oa = torch.zeros((N, T + 1), dtype=torch.int32, device=dev)  # T is a scratch slot
+    ob = torch.zeros((N, T + 1), dtype=torch.int32, device=dev)
+
+    it = 0
+    while it < T + 8 and bool(((col > 0) | (row > 0)).any()):
+        for _ in range(_STEPS_PER_CHECK):
+            active = (col > 0) | (row > 0)
+            idx = ((col - 1) * l1 + row).clamp(0, R * l1 - 1)
+            d = flat.gather(0, idx[None, :])[0].to(torch.int64)
+
+            fresh = active & (rc == 0) & (uc == 0)
+            tailq = fresh & (col == 0)  # reference exhausted: the remaining query rows
+            see_up = fresh & ~tailq & (row > 0) & (d < 0)
+            diag = fresh & ~tailq & ~see_up & (d == 0)
+            newl = fresh & ~tailq & ~see_up & (d > 0)
+
+            uc = torch.where(see_up, -d, uc)
+            rc = torch.where(newl, d, rc)
+            emit_up = active & (uc > 0) & ~diag & ~newl & ~tailq
+            emit_left = active & (rc > 0) & ~emit_up & ~diag & ~tailq
+
+            # Exactly one emission per active read per step.
+            slot = torch.where(active, t.clamp(0, T), T)
+            oa[narr, slot] = torch.where(emit_left | diag, col, 0).to(torch.int32)
+            ob[narr, slot] = torch.where(emit_up | tailq | diag, row, 0).to(torch.int32)
+
+            row = row - (emit_up | tailq | diag).to(torch.int64)
+            col = col - (emit_left | diag).to(torch.int64)
+            uc = uc - emit_up.to(torch.int64)
+            rc = rc - emit_left.to(torch.int64)
+            t = t + active.to(torch.int64)
+        it += _STEPS_PER_CHECK
+    return oa[:, :T], ob[:, :T], t.to(torch.int32)
+
+
+def assemble_strings(a_pos, b_pos, ncols, refseq: str, seqs: list[str]):
+    """Emission arrays -> gapped (reference, query) strings + edit counts.
+
+    One fancy-index per side builds [N, T] byte planes; per read the first
+    ``ncols`` bytes, reversed, are the alignment (the walk emits back to
+    front).  Edits count differing columns (general_align.cpp:47-52).
+    Host numpy; takes numpy arrays or tensors.
+    """
+    a_pos = np.asarray(a_pos, dtype=np.int64)
+    b_pos = np.asarray(b_pos, dtype=np.int64)
+    ncols = np.asarray(ncols, dtype=np.int64)
+    N, T = a_pos.shape
+    rbytes = np.frombuffer(("-" + refseq).encode(), dtype=np.uint8)
+    ra = rbytes[a_pos]  # [N, T] uint8
+    maxq = max((len(s) for s in seqs), default=0)
+    qmat = np.full((N, maxq + 1), ord("-"), np.uint8)
+    for i, s in enumerate(seqs):
+        if s:
+            qmat[i, 1 : len(s) + 1] = np.frombuffer(s.encode(), dtype=np.uint8)
+    qa = qmat[np.arange(N)[:, None], np.clip(b_pos, 0, maxq)]
+    qa[b_pos == 0] = ord("-")
+
+    live = np.arange(T)[None, :] < ncols[:, None]
+    edits = ((ra != qa) & live).sum(axis=1).astype(np.int64)
+    refalign = [ra[i, : ncols[i]][::-1].tobytes().decode() for i in range(N)]
+    qalign = [qa[i, : ncols[i]][::-1].tobytes().decode() for i in range(N)]
+    return refalign, qalign, edits
 
 
 def query_windows(

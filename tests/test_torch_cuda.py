@@ -7,8 +7,9 @@ JAX, so it also runs on a machine that has only PyTorch:
 
 (``--noconftest`` skips ``tests/conftest.py``, which imports JAX.)  Kernel A
 and kernel B must give directions bit-identical and scores equal to their
-plain PyTorch versions on the same card, across the shapes each kernel's
-launch configuration branches on.
+plain PyTorch versions on the same card, and kernels C and D scores equal
+to theirs, across the shapes each kernel's launch configuration branches
+on.
 """
 
 import numpy as np
@@ -17,14 +18,21 @@ import torch
 
 from sarlacc_tpu_torch.api.align_internal import prepare_adaptor
 from sarlacc_tpu_torch.core.encode import SeqBatch
-from sarlacc_tpu_torch.ops.align import dp_align, prepare_reads
+from sarlacc_tpu_torch.ops.align import dp_align, dp_scores, dp_scores_segments, prepare_reads
 from sarlacc_tpu_torch.ops.cuda_align import (
     DIR_KERNEL,
+    SCORE_KERNEL,
+    SEGMENTS_KERNEL,
     build_cost_planes,
     dir_kernel,
     encode_mask,
     fit_dirs,
+    fit_scores_from_planes,
+    fit_scores_segments,
+    pack_segments,
     plane_dims,
+    score_kernel,
+    segments_kernel,
 )
 from sarlacc_tpu_torch.ops.cuda_msa import PAIR_KERNEL, banded_pair, banded_pair_plain, pair_kernel
 
@@ -121,3 +129,96 @@ def test_pair_kernel_rejects_bad_width(cuda_device, W):
     args = [torch.as_tensor(a, device=cuda_device) for a in _pairs(np.random.default_rng(2), 4, 64, W, 6)]
     with pytest.raises(ValueError, match="power of two"):
         pair_kernel(*args, 0.0, -1.0, 5.0, 1.0, 64, W)
+
+
+def _score_inputs(device, ref, n, maxl, zero_lengths=False):
+    rng = np.random.default_rng(n + maxl + len(ref))
+    batch = _reads(rng, n, maxl)
+    if zero_lengths:
+        batch = SeqBatch.from_strings([""] * n, [""] * n)
+    ad = prepare_adaptor(ref, device=device)
+    codes, qidx, lengths = prepare_reads(batch, ad.tables, device=device)
+    # Fix the plane height at the longest read the shape allows, so l1
+    # does not depend on the draw.
+    l1, n_pad = plane_dims(n, maxl)
+    full = torch.full((n, maxl), 5, dtype=torch.int8, device=device)
+    full[:, : codes.shape[1]] = codes
+    fullq = torch.zeros((n, maxl), dtype=torch.int8, device=device)
+    fullq[:, : qidx.shape[1]] = qidx
+    planes = build_cost_planes(full, fullq, ad.match_tab, ad.mismatch_tab, l1, n_pad)
+    return ad, planes, lengths, l1, n_pad
+
+
+# R = 1, 12, 51; l1 = 32 and 256; n off the 128-thread block and zero lengths.
+SCORE_SHAPES = [
+    ("A", 200, 31, True), ("A", 200, 31, False), (BARCODE, 300, 31, False),
+    (BARCODE, 77, 250, True), (ADAPTOR, 1000, 250, True), (ADAPTOR, 129, 250, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ref,n,maxl,local", SCORE_SHAPES)
+@pytest.mark.parametrize("zero_lengths", [False, True])
+def test_score_kernel_matches_plain(cuda_device, ref, n, maxl, local, zero_lengths):
+    ad, planes, lengths, l1, n_pad = _score_inputs(cuda_device, ref, n, maxl, zero_lengths)
+    assert l1 in (32, 256)
+    mask = encode_mask(ad.matched)
+    before = SCORE_KERNEL.launches
+    got = score_kernel(ad.modes, mask, 5.0, 1.0, *planes, lengths, local)
+    assert SCORE_KERNEL.launches == before + 1
+    S = dp_scores(ad.modes, mask, 5.0, 1.0, *planes, local)
+    want = S[:, :n].gather(0, lengths.long()[None, :])[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    via = fit_scores_from_planes(planes, lengths, ad.modes, ad.matched, 5.0, 1.0, l1, n_pad, local)
+    assert torch.equal(via, want) and SCORE_KERNEL.launches == before + 2
+
+
+def _grid_segments(ad, nseg):
+    pairs = [(go, ge) for go in range(4, 11) for ge in range(1, 6)][:nseg]
+    return [(ad.modes, ad.matched, go, ge, (go + ge) % 2 == 0) for go, ge in pairs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "ref,n,maxl,nseg", [(BARCODE, 300, 31, 1), (BARCODE, 1000, 31, 12), (ADAPTOR, 257, 250, 35), (ADAPTOR2, 130, 250, 12)]
+)
+@pytest.mark.parametrize("zero_lengths", [False, True])
+def test_segments_kernel_matches_plain(cuda_device, ref, n, maxl, nseg, zero_lengths):
+    ad, planes, lengths, l1, n_pad = _score_inputs(cuda_device, ref, n, maxl, zero_lengths)
+    empty = prepare_adaptor("", device=cuda_device)
+    segments = _grid_segments(ad, nseg)
+    if nseg > 1:  # an empty reference among the others, global and local
+        segments[1] = (empty.modes, empty.matched, 5.0, 1.0, False)
+        segments[-1] = (empty.modes, empty.matched, 5.0, 1.0, True)
+    modes, mask, segs = pack_segments(segments, cuda_device)
+    lens_k = torch.zeros(n_pad, dtype=torch.int32, device=cuda_device)
+    lens_k[:n] = lengths
+    before = SEGMENTS_KERNEL.launches
+    got = segments_kernel(modes, mask, segs, *planes, lens_k)
+    assert SEGMENTS_KERNEL.launches == before + 1
+    want = dp_scores_segments(modes, mask, segs, *planes, lens_k)
+    torch.cuda.synchronize()
+    assert got.shape == (nseg, n_pad)
+    assert torch.equal(got, want)  # padded lanes (length 0) included
+    via = fit_scores_segments(planes, lengths, segments, l1, n_pad)
+    assert torch.equal(via, want[:, :n])
+
+
+@pytest.mark.cuda
+def test_barcode_and_tune_launch_kernel_d(cuda_device):
+    import sarlacc_tpu_torch as st
+
+    batch = _reads(np.random.default_rng(3), 50, 14)
+    before = SEGMENTS_KERNEL.launches
+    bc = st.barcode_align(batch, [BARCODE, "ACGTACGTACGT", "TTTTGGGGCCCC"])
+    assert SEGMENTS_KERNEL.launches == before + 1
+    cpu = st.barcode_align(batch, [BARCODE, "ACGTACGTACGT", "TTTTGGGGCCCC"], device="cpu")
+    np.testing.assert_array_equal(bc["barcode"], cpu["barcode"])
+    np.testing.assert_array_equal(bc["score"], cpu["score"])
+    reads = _reads(np.random.default_rng(4), 30, 120)
+    before = SEGMENTS_KERNEL.launches
+    kw = dict(reads=reads, tolerance=60, gap_op_range=(4, 5), gap_ext_range=(1, 2))
+    tuned = st.tune_alignment(ADAPTOR, ADAPTOR2, **kw)
+    assert SEGMENTS_KERNEL.launches == before + 4
+    assert tuned["parameters"] == st.tune_alignment(ADAPTOR, ADAPTOR2, device="cpu", **kw)["parameters"]

@@ -6,7 +6,8 @@ Phases, each printing its result on its own line:
 
 1. environment: torch / CUDA / nvcc versions, card name and power limit;
 2. build: the hand-written CUDA kernels (one nvcc per source, all started
-   together) and the native host library, from this checkout's sources;
+   together: the four of the main paths and the tools' two) and the native
+   host library, from this checkout's sources;
 3. kernels: kernel A (adaptor direction DP) and kernel B (banded pair DP)
    at the pipeline's shapes, then kernel C (score-only DP) and kernel D
    (multi-segment score-only DP) at the demux shapes of bench.py:207-240,
@@ -31,7 +32,21 @@ Phases, each printing its result on its own line:
    frame: one warm-up pass with synchronized step timers, one timed pass
    with the launch counts, then its outputs compared with the same calls on
    ``device="cpu"`` (tune_alignment on a 400-read slice: its plain CPU
-   run at full size would take many minutes).
+   run at full size would take many minutes);
+9. umi: ``umi_group`` on three workloads from bench.py::bench_umi's
+   generator (random centres, 30% of reads mutated by one base, one
+   pre-group, seed 5): 100 000 10-bp UMIs at threshold 2 (the native
+   filter path), 20 000 30-bp UMIs at threshold 2 and 20 000 20-bp UMIs at
+   threshold 3 (both the row-block neighbour scan on the card); each warmed
+   on a quarter, then timed with the scan's synchronised step time; for the
+   two scan workloads the groups of a 2 500-UMI slice equal the same call
+   on ``device="cpu"``;
+10. tools: every new kernel (the five kernel-C ablations, the four op-mix
+    and five op-rate classes) against its plain version on the card, bit
+    for bit (the chains at 4 iterations), ``full`` against kernel C and the
+    profile's pure kernel C against ``dp_scores``; then the four
+    measurement tools (``sarlacc_tpu_torch.tools``) once each at their
+    defaults with 2 reps, with the launch counts.
 
 The second-to-last line is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -58,18 +73,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds per call from CUDA events, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def event_ms(fn, reps: int, dev) -> float:
+    """Mean CUDA-event milliseconds per call, after one warm-up call."""
+    from sarlacc_tpu_torch.tools.timing import event_ms as timed
+
+    return timed(fn, reps, dev)
 
 
 def equal_scores(torch, what, got, want) -> float:
@@ -165,8 +173,8 @@ def phase_kernels(torch, st, batch, dev, max_pairs=4096):
         S_k, D_k = dir_kernel(*args)
         S_p, D_p = dp_align(*args)
         err = compare(torch, f"kernel A ({name})", D_k, D_p, S_k, S_p)
-        ms = cuda_ms(torch, lambda: dir_kernel(*args), 5)
-        plain_ms = cuda_ms(torch, lambda: dp_align(*args), 3)
+        ms = event_ms(lambda: dir_kernel(*args), 5, dev)
+        plain_ms = event_ms(lambda: dp_align(*args), 3, dev)
         log(f"[kernels] A {name}: N={N} L={L} R={len(adaptor)} l1={l1} n_pad={n_pad}: "
             f"dirs equal, max|dS|={err}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         rows_out.append(("A", name, err, ms, plain_ms))
@@ -202,8 +210,8 @@ def phase_kernels(torch, st, batch, dev, max_pairs=4096):
     sk, dk = pair_kernel(*bargs)
     sp, dp = banded_pair_plain(*bargs)
     err = compare(torch, "kernel B", dk, dp, sk, sp)
-    ms = cuda_ms(torch, lambda: pair_kernel(*bargs), 5)
-    plain_ms = cuda_ms(torch, lambda: banded_pair_plain(*bargs), 1)
+    ms = event_ms(lambda: pair_kernel(*bargs), 5, dev)
+    plain_ms = event_ms(lambda: banded_pair_plain(*bargs), 1, dev)
     log(f"[kernels] B pairs: P={P} rows={rows} W={W}: dirs equal, max|dscore|={err}, "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
     rows_out.append(("B", "pairs", err, ms, plain_ms))
@@ -264,8 +272,8 @@ def phase_score_kernels(torch, st, demux, dev):
             return dp_scores(*args, True)[:, :N].gather(0, idx)[0]
 
         err = equal_scores(torch, f"kernel C ({name})", kern(), plain())
-        ms = cuda_ms(torch, kern, 5)
-        plain_ms = cuda_ms(torch, plain, 2)
+        ms = event_ms(kern, 5, dev)
+        plain_ms = event_ms(plain, 2, dev)
         log(f"[kernels] C {name}: N={N} l1={l1} R={len(ad)} local: scores equal, "
             f"max|dS|={err}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         rows_out.append(("C", name, err, ms, plain_ms))
@@ -278,8 +286,8 @@ def phase_score_kernels(torch, st, demux, dev):
         args = (modes, mask, segs, *prepared.planes(), lens_k)
         err = equal_scores(torch, f"kernel D ({name})", segments_kernel(*args),
                            dp_scores_segments(*args))
-        ms = cuda_ms(torch, lambda: segments_kernel(*args), 5)
-        plain_ms = cuda_ms(torch, lambda: dp_scores_segments(*args), 2)
+        ms = event_ms(lambda: segments_kernel(*args), 5, dev)
+        plain_ms = event_ms(lambda: dp_scores_segments(*args), 2, dev)
         log(f"[kernels] D {name}: N={prepared.n} l1={l1_} nseg={len(segs)} "
             f"R={[r for _, r, *_ in segs]}: scores equal (padded lanes included), "
             f"max|dS|={err}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
@@ -692,6 +700,145 @@ def phase_calibration(torch, st, batch, aligned, kernels, dev):
     return counts
 
 
+def umi_batch(n, umi_len, n_clusters, seed=5):
+    """bench.py::bench_umi's generator, as a port SeqBatch."""
+    import numpy as np
+
+    from sarlacc_tpu_torch.core.encode import SeqBatch
+
+    rng = np.random.default_rng(seed)
+    centers = rng.integers(0, 4, (n_clusters, umi_len)).astype(np.int8)
+    codes = centers[rng.integers(0, n_clusters, n)]
+    mut = rng.random(n) < 0.3
+    pos = rng.integers(0, umi_len, n)
+    sub = rng.integers(0, 4, n).astype(np.int8)
+    codes[mut, pos[mut]] = sub[mut]
+    return SeqBatch(codes, np.full(n, umi_len, np.int64), None, None)
+
+
+#: (name, UMIs, length, centres, threshold, takes the row-block scan).
+UMI_WORKLOADS = (
+    ("umi_100k", 100_000, 10, 20_000, 2, False),
+    ("long_umis", 20_000, 30, 4_000, 2, True),
+    ("many_variants", 20_000, 20, 4_000, 3, True),
+)
+
+
+def phase_umi(torch, st, dev):
+    """umi_group on the card: timed, and the row-block workloads' slices
+    compared with device='cpu' (tolerance 0: the same groups)."""
+    import numpy as np
+
+    rows = []
+    for name, n, umi_len, k, thr, scans in UMI_WORKLOADS:
+        batch = umi_batch(n, umi_len, k)
+        st.umi_group(batch.take(np.arange(n // 4)), threshold1=thr, device=dev)  # warm-up
+        totals, restore = timed_steps(
+            torch, (("sarlacc_tpu_torch.ops.levenshtein", "_neighbor_pairs_rowblock"),)
+        )
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            groups = st.umi_group(batch, threshold1=thr, device=dev)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        finally:
+            restore()
+        scan_s, scan_calls = totals["_neighbor_pairs_rowblock"]
+        members = np.sort(np.concatenate(groups))
+        if not np.array_equal(members, np.arange(n)):
+            raise AssertionError(f"umi {name}: the groups do not partition the {n} UMIs")
+        if (scan_calls > 0) != scans:
+            raise AssertionError(f"umi {name}: row-block scan calls {scan_calls}, expected "
+                                 f"{'some' if scans else 'none'}")
+        line = (f"[umi] {name}: {n} UMIs of {umi_len} bp, threshold {thr}: {elapsed:.3f} s = "
+                f"{n / elapsed:.1f} UMIs/s, {len(groups)} groups; row-block scan "
+                f"{scan_s:.3f} s synchronised over {scan_calls} calls")
+        if scans:
+            sl = batch.take(np.arange(2500))
+            t0 = time.perf_counter()
+            card = st.umi_group(sl, threshold1=thr, device=dev)
+            cpu = st.umi_group(sl, threshold1=thr, device="cpu")
+            if [g.tolist() for g in card] != [g.tolist() for g in cpu]:
+                raise AssertionError(f"umi {name}: the 2 500-UMI slice groups differently on the CPU")
+            line += (f"; 2 500-UMI slice: {len(card)} groups, equal to device='cpu' "
+                     f"(comparison {time.perf_counter() - t0:.1f} s)")
+        log(line)
+        rows.append((name, n, elapsed, len(groups), scan_s))
+    return rows
+
+
+#: The scripts' pallas_call lines each new kernel replaces.
+TOOL_REPLACES = {
+    "ablation": "scripts/microbench_score_ablation.py:123",
+    "op_mix": "scripts/microbench_op_mix.py:59",
+    "op_rates": "scripts/microbench_vpu_ops.py:67",
+    "profile_demux": "scripts/profile_demux_tpu.py:122",
+}
+
+
+def phase_tools(torch, dev):
+    """Every new kernel against its plain version (launches not counted),
+    then the four tools at their defaults with the counts reset."""
+    from sarlacc_tpu_torch.api.align_internal import prepare_adaptor, prepare_scores_input
+    from sarlacc_tpu_torch.ops.align import dp_scores
+    from sarlacc_tpu_torch.ops.cuda_align import SCORE_KERNEL, encode_mask
+    from sarlacc_tpu_torch.tools import op_mix, op_rates, profile_demux, score_ablation
+    from sarlacc_tpu_torch.tools.timing import event_ms
+
+    checks = []  # (family, name, kernel, max_abs_err, ms, plain_ms)
+    args = score_ablation.make_inputs(100_000, 250, 51, dev)
+    for v, r in score_ablation.check(args).items():
+        checks.append(("ablation", v, score_ablation.KERNELS[v], r["max_abs_err"], r["ms"], r["plain_ms"]))
+    log("[tools] ablation: the five variants equal their plain versions at N=100000 L=250 "
+        "R=51 (full also equals kernel C)")
+    for fam, mod in (("op_mix", op_mix), ("op_rates", op_rates)):
+        res = mod.check(dev)
+        for cls, r in res.items():
+            checks.append((fam, f"{cls}@{r['iters']}iters", mod.KERNELS[cls], r["max_abs_err"],
+                           r["ms"], r["plain_ms"]))
+        sass = "instruction counts intact" if all(r["sass_checked"] for r in res.values()) else \
+            "cuobjdump missing, instruction counts not checked"
+        log(f"[tools] {fam}: {len(res)} classes equal their plain versions at 4 iterations; {sass}")
+    # The profile's pure kernel C at its shape, against dp_scores.
+    import numpy as np
+
+    from sarlacc_tpu_torch.core.encode import SeqBatch
+
+    rng = np.random.default_rng(3)
+    front = SeqBatch(rng.integers(0, 4, (100_000, 250)).astype(np.int8), np.full(100_000, 250),
+                     rng.integers(20, 60, (100_000, 250)).astype(np.uint8) + 33, None)
+    a1 = prepare_adaptor(profile_demux.ADAPTOR1, device=dev)
+    prep = prepare_scores_input(a1, front)
+    planes, lengths = prep.planes(), prep.lengths
+    pargs = (a1.modes, encode_mask(a1.matched), 5.0, 1.0, *planes)
+    idx = lengths.to(torch.int64)[None, :]
+    got = profile_demux.pure_kernel(a1, planes, lengths)
+    want = dp_scores(*pargs, True)[:, : lengths.shape[0]].gather(0, idx)[0]
+    err = equal_scores(torch, "profile_demux pure kernel C", got, want)
+    checks.append(("profile_demux", "a1", SCORE_KERNEL, err,
+                   event_ms(lambda: profile_demux.pure_kernel(a1, planes, lengths), 3, dev),
+                   event_ms(lambda: dp_scores(*pargs, True), 1, dev)))
+    del prep, planes, front
+
+    kernels = [*score_ablation.KERNELS.values(), *op_mix.KERNELS.values(),
+               *op_rates.KERNELS.values(), SCORE_KERNEL]
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    results = {
+        "ablation": score_ablation.measure(reps=2, check_first=False, args=args, log=log),
+        "op_mix": op_mix.measure(reps=2, check_first=False, log=log),
+        "op_rates": op_rates.measure(reps=2, check_first=False, log=log),
+        "profile_demux": profile_demux.measure(reps=2, log=log),
+    }
+    counts = {k.symbol: k.launches for k in kernels}
+    if min(counts.values()) == 0:
+        raise AssertionError(f"a tool kernel never launched in the tools run: {counts}")
+    log(f"[tools] four tools at their defaults in {time.perf_counter() - t0:.1f} s; launches {counts}")
+    return checks, counts, results
+
+
 def main() -> int:
     import torch
 
@@ -709,10 +856,13 @@ def main() -> int:
     from sarlacc_tpu_torch.ops.cuda_align import DIR_KERNEL, SCORE_KERNEL, SEGMENTS_KERNEL
     from sarlacc_tpu_torch.ops.cuda_msa import PAIR_KERNEL
 
+    from sarlacc_tpu_torch.tools import op_mix, op_rates, score_ablation
+
     pipeline_kernels = (DIR_KERNEL, PAIR_KERNEL)
     kernels = (DIR_KERNEL, PAIR_KERNEL, SCORE_KERNEL, SEGMENTS_KERNEL)
     smi = phase_environment(torch)
-    phase_build(kernels)
+    phase_build(kernels + tuple(score_ablation.KERNELS.values()) + tuple(op_mix.KERNELS.values())
+                + tuple(op_rates.KERNELS.values()))
     bench = mock_batch(
         st, ADAPTOR1_BENCH, nmolecules=950, nreads_range=(8, 14),
         seqlen_range=(400, 700), seed=7,
@@ -726,9 +876,13 @@ def main() -> int:
     phase_golden_demux(torch, st, SEGMENTS_KERNEL, dev)
     demux_counts = phase_demux(torch, st, demux, kernels, dev)
     cal_counts = phase_calibration(torch, st, bench, aligned, kernels, dev)
+    del bench, aligned, demux
+    phase_umi(torch, st, dev)
+    tool_checks, tool_counts, _ = phase_tools(torch, dev)
 
     # Each kernel's launches come from the path it serves: A and B from the
-    # correction pipeline, C from calibration, D from the demux pass.
+    # correction pipeline, C from calibration, D from the demux pass, the
+    # tools' kernels (and C again, for the demux profile) from the tools run.
     desc = {
         "A": (DIR_KERNEL, "sarlacc_tpu/ops/pallas_align.py:193", counts),
         "B": (PAIR_KERNEL, "sarlacc_tpu/ops/pallas_msa.py:99", counts),
@@ -744,6 +898,17 @@ def main() -> int:
             "source": os.path.relpath(kern.source, HERE),
             "replaces": replaces,
             "launches": path_counts[kern.symbol],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+        })
+    for family, name, kern, err, ms, plain_ms in tool_checks:
+        report.append({
+            "name": f"{kern.symbol.removeprefix('sarlacc_')}[{family}:{name}]",
+            "route": "cuda",
+            "source": os.path.relpath(kern.source, HERE),
+            "replaces": TOOL_REPLACES[family],
+            "launches": tool_counts[kern.symbol],
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,

@@ -9,10 +9,12 @@ neighbour sets exactly.
   plain PyTorch column DP on the device: the within-column recurrence
   ``col[i] = min(prev[i]+2, col[i-1]+2, prev[i-1]+ms)`` unrolls to a shifted
   prefix-min (``cummin``), so pairs and positions stay parallel.
-* :func:`lev2_neighbor_pairs` — thresholded neighbours at scale through the
-  native symmetric-delete search.  Where the JAX package would take its
-  device row-block scan (the filter's heuristics fail) this port raises
-  ``NotImplementedError``.
+* :func:`lev2_neighbor_pairs` — thresholded neighbours at scale through one
+  of the JAX package's two exact engines: the native symmetric-delete
+  search where its heuristics hold, else the row-block scan
+  (:func:`_neighbor_pairs_rowblock`) on the caller's device.
+* :func:`lev2_condensed` — all pairs, condensed (i < j, i-major), for
+  ``expected_dist``.
 """
 
 from __future__ import annotations
@@ -20,10 +22,50 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["lev2_matrix", "lev2_neighbor_pairs"]
+__all__ = ["lev2_condensed", "lev2_matrix", "lev2_neighbor_pairs"]
 
 #: Query rows per distance tile: bounds the [TI, n, L+1] DP state.
 _TILE_CELLS = 1 << 24
+
+
+def _lev2_scan(a, la, b, lb):
+    """Doubled distances between code rows ``a`` and ``b``, broadcasting.
+
+    a [..., L] and b [..., L] int32 codes (pad 5) whose leading shapes
+    broadcast to the result's; la and lb int32 of those leading shapes.
+    The counterpart of the JAX ``_pairs_scan`` / ``_tile_d2`` (one column of
+    ``b`` per step).  Returns int32 of the broadcast leading shape.
+
+    The DP position is the leading axis of the state, so each position is
+    one contiguous plane, and the state is the column minus its ramp,
+    ``q[k] = col[k] - 2k``: ``q' = prefix-min([2(j+1), min(q[1:] + 2,
+    q[:-1] + ms - 2)])``, with the prefix min as L in-place minimums over
+    planes.  ``ms - 2`` for each code of ``b`` comes from a table of ``a``
+    ([6, L, ...]: 0 mismatch, -2 match, -1 N).
+    """
+    L = a.shape[-1]
+    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1], la.shape, lb.shape)
+    dev = a.device
+    at = a.movedim(-1, 0)  # [L, ...]
+    codes = torch.arange(6, dtype=torch.int32, device=dev).view(6, *([1] * at.dim()))
+    table = torch.where(
+        (codes == 4) | (at == 4), -1, torch.where(at == codes, -2, 0)
+    ).to(torch.int32).expand(6, L, *shape)
+    q = torch.zeros((L + 1, *shape), dtype=torch.int32, device=dev)
+    cand = torch.empty_like(q)
+    ans = (2 * la).expand(shape)  # lb == 0 answer
+    la_idx = la.to(torch.int64)[None].expand(1, *shape)
+    for jx in range(L):
+        bj = b[..., jx].to(torch.int64)[None, None].expand(1, L, *shape)
+        ms2 = table.gather(0, bj)[0]
+        cand[0] = 2 * (jx + 1)
+        torch.minimum(q[1:] + 2, q[:-1] + ms2, out=cand[1:])
+        for k in range(1, L + 1):
+            torch.minimum(cand[k], cand[k - 1], out=cand[k])
+        q, cand = cand, q
+        got = q.gather(0, la_idx)[0] + 2 * la
+        ans = torch.where(jx + 1 == lb, got, ans)
+    return ans
 
 
 def _lev2_block(a, la, b, lb):
@@ -32,32 +74,7 @@ def _lev2_block(a, la, b, lb):
     a [TI, L], b [n, L] int32 codes (pad 5); la [TI], lb [n] int32.
     Returns int32 [TI, n].
     """
-    TI, L = a.shape
-    n = b.shape[0]
-    dev = a.device
-    idx2 = 2 * torch.arange(L + 1, dtype=torch.int32, device=dev)
-    prev = idx2.expand(TI, n, L + 1)
-    ans = (2 * la)[:, None].expand(TI, n)  # lb == 0 answer
-    a_is_n = (a == 4)[:, None, :]
-    a3 = a[:, None, :]
-    la_idx = la.to(torch.int64)[:, None, None].expand(TI, n, 1)
-    for jx in range(L):
-        bj = b[:, jx][None, :, None]
-        ms = torch.where(
-            (bj == 4) | a_is_n, 1, torch.where(a3 == bj, 0, 2)
-        ).to(torch.int32)
-        cand = torch.cat(
-            [
-                torch.full((TI, n, 1), 2 * (jx + 1), dtype=torch.int32, device=dev),
-                torch.minimum(prev[..., 1:] + 2, prev[..., :-1] + ms),
-            ],
-            dim=-1,
-        )
-        col = torch.cummin(cand - idx2, dim=-1).values + idx2
-        got = col.gather(-1, la_idx)[..., 0]
-        ans = torch.where((jx + 1 == lb)[None, :], got, ans)
-        prev = col
-    return ans
+    return _lev2_scan(a[:, None, :], la[:, None], b[None], lb[None])
 
 
 def lev2_matrix(codes: np.ndarray, lengths: np.ndarray, device=None) -> np.ndarray:
@@ -77,6 +94,54 @@ def lev2_matrix(codes: np.ndarray, lengths: np.ndarray, device=None) -> np.ndarr
     for i0 in range(0, n, tile):
         blk = _lev2_block(c[i0 : i0 + tile], lens[i0 : i0 + tile], c, lens)
         out[i0 : i0 + tile] = blk.cpu().numpy()
+    return out
+
+
+#: Largest n whose condensed distances come from the dense matrix; above
+#: it the pairs run in bounded chunks and no n x n array exists.
+_CONDENSED_DENSE_MAX = 8192
+
+
+def lev2_condensed(
+    codes: np.ndarray, lengths: np.ndarray, max_pairs: int = 1 << 22, device=None,
+) -> np.ndarray:
+    """All-pairs doubled distances, condensed (i < j, i-major), int32.
+
+    The counterpart of the JAX ``lev2_condensed`` and of
+    compute_lev_masked.cpp's emission order (:44-55); divide by 2.0 for the
+    float masked distance.  Up to :data:`_CONDENSED_DENSE_MAX` strings the
+    dense tiles of :func:`lev2_matrix` serve; above, rows are taken in
+    chunks of at most ``max_pairs`` pairs (at least one row), each one
+    per-pair DP on ``device``.
+    """
+    n = codes.shape[0]
+    codes = np.asarray(codes, np.int32)
+    lengths = np.asarray(lengths, np.int32)
+    if 2 <= n <= _CONDENSED_DENSE_MAX:
+        mat = lev2_matrix(codes, lengths, device=device)
+        iu, ju = np.triu_indices(n, k=1)
+        return mat[iu, ju].astype(np.int32)
+    dev = torch.device("cpu" if device is None else device)
+    c = torch.as_tensor(codes, device=dev)
+    lens = torch.as_tensor(lengths, device=dev)
+    out = np.zeros(n * (n - 1) // 2, dtype=np.int32)
+    per_row = np.arange(n - 1, -1, -1, dtype=np.int64)  # pairs of row i
+    row_end = np.cumsum(per_row)
+    at = i0 = 0
+    while i0 < n - 1:
+        i1 = max(int(np.searchsorted(row_end, at + max_pairs, side="right")), i0 + 1)
+        i1 = min(i1, n - 1)
+        rows = np.arange(i0, i1, dtype=np.int64)
+        cnt = per_row[i0:i1]
+        total = int(cnt.sum())
+        ia = np.repeat(rows, cnt)
+        ja = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(cnt) - cnt, cnt) + ia + 1
+        ia_t = torch.as_tensor(ia, device=dev)
+        ja_t = torch.as_tensor(ja, device=dev)
+        d2 = _lev2_scan(c[ia_t], lens[ia_t], c[ja_t], lens[ja_t])
+        out[at : at + total] = d2.cpu().numpy()
+        at += total
+        i0 = i1
     return out
 
 
@@ -108,45 +173,38 @@ _FILTER_MAX_VARIANTS = 512
 
 def _neighbor_pairs_filtered(
     codes: np.ndarray, lengths: np.ndarray, limit: int, thr: int
-) -> tuple[np.ndarray, np.ndarray]:
+) -> tuple[np.ndarray, np.ndarray] | None:
     """Exact neighbour pairs in unique-string space via the native
-    symmetric-delete search (candidate hashing + banded verification).
+    symmetric-delete search (candidate hashing + banded verification);
+    None where the filter's heuristics do not hold and the caller takes
+    the row-block scan, at the same four points as the JAX function.
 
     Exactness: for N-free pairs every edit costs exactly 2 doubled units, so
     any pair within ``limit`` shares a ``<=limit``-deletion variant; every
     candidate is then verified by the exact banded DP.  Strings containing
-    N skip the filter and verify against *all* strings.  Where the filter's
-    heuristics do not hold the JAX package scans row blocks on the device;
-    this port raises instead.
+    N skip the filter and verify against *all* strings.
     """
     n = codes.shape[0]
     Lmax = int(lengths.max(initial=0))
     k = int(limit)
     if Lmax > _FILTER_MAX_LEN:
-        raise NotImplementedError(
-            f"UMIs longer than {_FILTER_MAX_LEN} need the device row-block "
-            "neighbour scan, which the PyTorch port does not have yet"
-        )
+        return None
     nvar = sum(
         int(np.prod(np.arange(Lmax - d + 1, Lmax + 1)) // np.prod(np.arange(1, d + 1)))
         if d else 1
         for d in range(min(k, Lmax) + 1)
     )
     if nvar > _FILTER_MAX_VARIANTS:
-        raise NotImplementedError(
-            f"{nvar} deletion variants per UMI exceed {_FILTER_MAX_VARIANTS}; "
-            "the device row-block neighbour scan is not ported yet"
-        )
+        return None
 
     pos = np.arange(codes.shape[1])[None, :]
     has_n = ((codes == 4) & (pos < lengths[:, None])).any(axis=1)
     n_rows = np.flatnonzero(has_n)
     a_rows = np.flatnonzero(~has_n)
+    # N-containing strings pair against everything: bail out if that cross
+    # product alone rivals the dense scan.
     if n_rows.size * n > max(1 << 26, n):
-        raise NotImplementedError(
-            "too many N-containing UMIs for the symmetric-delete filter; the "
-            "device row-block neighbour scan is not ported yet"
-        )
+        return None
 
     from ..native import ABORTED, sym_delete_verify_native, verify_pairs_native
 
@@ -154,10 +212,7 @@ def _neighbor_pairs_filtered(
         codes[a_rows], lengths[a_rows], k, int(limit), thr, raw_cap=1 << 31
     )
     if fused is ABORTED:
-        raise NotImplementedError(
-            "candidate volume exceeded the symmetric-delete cap; the device "
-            "row-block neighbour scan is not ported yet"
-        )
+        return None
     sa = a_rows[(fused >> np.uint64(32)).astype(np.int64)]
     sb = a_rows[(fused & np.uint64(0xFFFFFFFF)).astype(np.int64)]
 
@@ -186,16 +241,86 @@ def _neighbor_pairs_filtered(
     return ua.astype(np.int64), ub.astype(np.int64)
 
 
+#: DP cells (rows x cols x (L+1) int32 entries) per row-block launch group:
+#: 256 MiB per copy of the state, of which a group holds about five.
+_SCAN_CELLS = 1 << 26
+
+
+def _neighbor_pairs_rowblock(
+    codes: np.ndarray, lengths: np.ndarray, thr: int, limit: int, tile: int,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Dense row-block scan (unique-string space), the counterpart of the
+    JAX ``_neighbor_pairs_rowblock`` (``sarlacc_tpu/ops/levenshtein.py:592``).
+
+    Strings sort by length (stable); a block of ``tile`` rows scans only
+    columns ``j >= i`` up to the exact length prune ``hi_len + limit`` (any
+    pair costs at least 2 per length difference, so no pair beyond it can
+    pass).  The diagonal is computed, not assumed: it is not free for rows
+    with N.  The code table lives on ``device``; :func:`_lev2_block`
+    computes several column tiles per launch group (bounded by
+    :data:`_SCAN_CELLS`), each group's hits compact with ``torch.nonzero``
+    (row-major, so ascending j per row), and the host reads back once per
+    row block.  The JAX kernel's fixed-capacity lane-sort compaction with
+    its overflow retry, and its two program classes, answer a TPU's costly
+    scatter and recompiles; here they have nothing to do.  Returns (i, j)
+    int64 in the input's index space.
+    """
+    n = codes.shape[0]
+    dev = torch.device("cpu" if device is None else device)
+    lengths = np.asarray(lengths, np.int32)
+    perm = np.argsort(lengths, kind="stable").astype(np.int64)
+    s_len = lengths[perm]
+    # DP columns: the longest string (positions past it are padding in
+    # every row, and a row's distance never reads past its own length).
+    W = int(s_len[-1]) if n else 0
+    TI = max(1, min(int(tile), n))
+    cols_per_group = max(TI, _SCAN_CELLS // (TI * (W + 1)) // TI * TI)
+    c = torch.as_tensor(np.ascontiguousarray(codes[perm][:, :W], np.int32), device=dev)
+    lens = torch.as_tensor(s_len, device=dev)
+
+    out_i: list[np.ndarray] = []
+    out_j: list[np.ndarray] = []
+    for i0 in range(0, n, TI):
+        i1 = min(i0 + TI, n)
+        hi_len = int(s_len[i1 - 1])
+        j_end = min(max(int(np.searchsorted(s_len, hi_len + int(limit), side="right")), i0 + 1), n)
+        ig = torch.arange(i0, i1, device=dev)[:, None]
+        hits = []
+        for j0 in range(i0, j_end, cols_per_group):
+            j1 = min(j0 + cols_per_group, j_end)
+            d2 = _lev2_block(c[i0:i1], lens[i0:i1], c[j0:j1], lens[j0:j1])
+            jg = torch.arange(j0, j1, device=dev)[None, :]
+            ok = (d2 <= thr) & (jg >= ig)
+            hits.append(torch.nonzero(ok) + torch.tensor([i0, j0], device=dev))
+        got = torch.cat(hits).cpu().numpy()  # one readback per row block
+        out_i.append(got[:, 0])
+        out_j.append(got[:, 1])
+    if not out_i:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    si = np.concatenate(out_i).astype(np.int64)
+    sj = np.concatenate(out_j).astype(np.int64)
+    return perm[si], perm[sj]
+
+
 def lev2_neighbor_pairs(
-    codes: np.ndarray, lengths: np.ndarray, limit: int, assume_unique: bool = False,
+    codes: np.ndarray, lengths: np.ndarray, limit: int,
+    tile: int = 512, kcap: int = 64, assume_unique: bool = False, device=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Sparse thresholded neighbours: all (i, j), i <= j, with doubled
     distance <= 2*limit — including the diagonal, which is NOT free when a
     sequence contains N (sorted_trie.cpp:13-21).
 
     Identical rows share one search (``assume_unique=True`` skips that dedup
-    when the caller already collapsed duplicates).  Returns (qi, qj) int32
-    arrays in original index space.
+    when the caller already collapsed duplicates).  Unique strings then go
+    through one of the JAX package's two exact engines: the native
+    symmetric-delete filter where its heuristics hold
+    (:func:`_neighbor_pairs_filtered`), else the row-block scan on
+    ``device`` (default CPU) in row blocks of ``tile``
+    (:func:`_neighbor_pairs_rowblock`).  ``kcap`` is accepted for the JAX
+    signature and ignored: it sizes the JAX kernel's per-row hit buffer,
+    and the port compacts hits with ``torch.nonzero`` instead.  Returns
+    (qi, qj) int32 arrays in original index space.
     """
     n_reads = codes.shape[0]
     if n_reads == 0:
@@ -218,7 +343,11 @@ def lev2_neighbor_pairs(
         ulen[uid] = lengths
         codes, lengths = uniq, ulen
 
-    ua, ub = _neighbor_pairs_filtered(codes, lengths, int(limit), 2 * int(limit))
+    thr = 2 * int(limit)
+    pairs = _neighbor_pairs_filtered(codes, lengths, int(limit), thr)
+    if pairs is None:
+        pairs = _neighbor_pairs_rowblock(codes, lengths, thr, int(limit), tile, device)
+    ua, ub = pairs
     if ua.size == 0:
         return np.zeros(0, np.int32), np.zeros(0, np.int32)
     if assume_unique:

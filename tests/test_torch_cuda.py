@@ -222,3 +222,78 @@ def test_barcode_and_tune_launch_kernel_d(cuda_device):
     tuned = st.tune_alignment(ADAPTOR, ADAPTOR2, **kw)
     assert SEGMENTS_KERNEL.launches == before + 4
     assert tuned["parameters"] == st.tune_alignment(ADAPTOR, ADAPTOR2, device="cpu", **kw)["parameters"]
+
+
+# ------------------------------------------- the measurement tools' kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("local", [False, True])
+def test_ablation_kernels_match_plain(cuda_device, local):
+    from sarlacc_tpu_torch.tools import score_ablation as sa
+
+    args = list(sa.make_inputs(700, 60, 9, cuda_device, seed=4))
+    lengths = torch.as_tensor(np.random.default_rng(5).integers(0, 61, 700), dtype=torch.int32)
+    args[-1] = lengths.to(cuda_device)
+    assert torch.equal(sa.ablation_kernel("full", *args, local=local),
+                       score_kernel(*args, local=local))
+    for variant, kern in sa.KERNELS.items():
+        before = kern.launches
+        got = sa.ablated_scores(variant, *args, local=local)
+        assert kern.launches == before + 1
+        want = sa.ablated_scores_plain(variant, *args, local=local)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), variant
+
+
+@pytest.mark.cuda
+def test_op_chain_kernels_match_plain(cuda_device):
+    from sarlacc_tpu_torch.tools import op_mix, op_rates
+
+    rng = np.random.default_rng(6)
+    a, b1, b2 = (torch.as_tensor(rng.normal(size=(64, 32)).astype(np.float32), device=cuda_device)
+                 for _ in range(3))
+    for cls in op_rates.CLASSES:
+        got = op_rates.op_rates(cls, a, b1, b2, 3, 5, 9)
+        want = op_rates.op_rates_plain(cls, a, b1, b2, 3, op_rates.lane_mask(64, 5, cuda_device),
+                                       op_rates.lane_mask(64, 9, cuda_device))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), cls
+    for cls in op_mix.CLASSES:
+        got = op_mix.op_mix(cls, a, b1, b2, 3)
+        want = op_mix.op_mix_plain(cls, a, b1, b2, 3)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), cls
+
+
+@pytest.mark.cuda
+def test_op_chains_did_not_fold(cuda_device):
+    from sarlacc_tpu_torch.tools import op_mix, op_rates
+
+    census = op_rates.sass_census(op_rates.KERNELS["add"])
+    if census is None:
+        pytest.skip("the toolkit has no cuobjdump")
+    for i, cls in enumerate(op_rates.CLASSES):
+        op_rates.require_ops(cls, op_rates.census_of(census, "op_rates_kernel", i), op_rates.RATE_OPS[cls])
+    for i, cls in enumerate(op_mix.CLASSES):
+        op_rates.require_ops(cls, op_rates.census_of(census, "op_mix_kernel", i), op_mix.MIX_OPS[cls])
+
+
+@pytest.mark.cuda
+def test_rowblock_scan_on_card_matches_cpu(cuda_device):
+    from sarlacc_tpu_torch.core.encode import encode_batch
+    from sarlacc_tpu_torch.ops.levenshtein import lev2_condensed, lev2_neighbor_pairs
+
+    rng = np.random.default_rng(8)
+    seqs = ["".join(rng.choice(list("ACGTN"), int(rng.integers(24, 33)), p=[.24] * 4 + [.04]))
+            for _ in range(700)]
+    codes, lengths = encode_batch(seqs)
+    codes = codes.astype(np.int32)
+    for limit in (2, 3):
+        gi, gj = lev2_neighbor_pairs(codes, lengths, limit, tile=128, device=cuda_device)
+        wi, wj = lev2_neighbor_pairs(codes, lengths, limit, tile=128, device="cpu")
+        assert sorted(zip(gi.tolist(), gj.tolist())) == sorted(zip(wi.tolist(), wj.tolist()))
+    np.testing.assert_array_equal(
+        lev2_condensed(codes[:300], lengths[:300], device=cuda_device),
+        lev2_condensed(codes[:300], lengths[:300], device="cpu"),
+    )

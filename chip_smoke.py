@@ -9,10 +9,16 @@ Phases, each printing its result on its own line:
    together: the four of the main paths and the tools' two) and the native
    host library, from this checkout's sources;
 3. kernels: kernel A (adaptor direction DP) and kernel B (banded pair DP)
-   at the pipeline's shapes, then kernel C (score-only DP) and kernel D
-   (multi-segment score-only DP) at the demux shapes of bench.py:207-240,
-   each against its plain PyTorch version on the card; directions and
-   scores must be equal; CUDA-event times for all four;
+   at the pipeline's shapes; kernel C (score-only DP) at the demux shape of
+   bench.py:207-240 and at calibration's (19 926 stacked ends); kernel D
+   (multi-segment score-only DP) at the demux shapes, with 24-bp barcodes
+   (so each of its three tile widths runs), at tune_alignment's
+   (19 926 stacked ends x 35 penalty points, each adaptor) and with a
+   global segment of R = 150 that crosses column tiles beside an empty
+   one; each against its plain PyTorch version on the card (directions and
+   scores must be equal), with CUDA-event times, GCUPS, kernel C and D's
+   registers, shared memory and occupancy (theoretical, and achieved from
+   per-block timer stamps);
 4. golden: the seed-locked mock pipeline of tests/test_golden_pipeline.py
    through the port's five entry points on the card, compared key by key
    with tests/golden/pipeline_mock.json;
@@ -48,9 +54,18 @@ Phases, each printing its result on its own line:
     measurement tools (``sarlacc_tpu_torch.tools``) once each at their
     defaults with 2 reps, with the launch counts.
 
-The second-to-last line is a JSON object describing the kernels; the last
-line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
-non-zero; so does a machine without a CUDA device.  Imports no JAX.
+Every phase that drives an entry point sets all kernels' launch counts to 0
+before it and reads them after.  The second-to-last line is a JSON object
+describing the kernels: per row its CUDA-event ms, the plain version's ms,
+max |diff|, its launches over those runs (``launches``, and per path in
+``launches_by_path``), and ``bound_ms``: the larger of its compulsory bytes
+(each input read once, each output written once; of the cost planes only
+the slots the references select, at the rows the DP computes) over 3.35
+TB/s and its float operations over 67 TFLOP/s (the H100 SXM data sheet),
+with ``bound_by`` naming the larger.  ``library_ms`` is null: no single
+PyTorch call computes these DPs or chains.  The last line is ``{"ok": true,
+"device": {...}}``.  Any failure raises and exits non-zero; so does a
+machine without a CUDA device.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -78,6 +93,57 @@ def event_ms(fn, reps: int, dev) -> float:
     from sarlacc_tpu_torch.tools.timing import event_ms as timed
 
     return timed(fn, reps, dev)
+
+
+#: The card's peak rates the bounds use: HBM bytes/s and float32 ops/s
+#: outside the tensor cores (H100 SXM data sheet).
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+#: Float operations (adds, multiplies, maxes, compares and selects) a DP
+#: cell, counted in each kernel's cell body: A 26 (``csrc/dir_kernel.cu``:
+#: cost select, M, the horizontal candidates and choice, the two ramps, V,
+#: B, S, the direction compares, the vertical-run test, cum); B 21
+#: (``csrc/pair_kernel.cu``'s two per-cell loops: substitution select, M,
+#: the vertical gap, mv, B and its running max, the closed horizontal gap,
+#: the masks, S and the choice); C and D 10 (``csrc/score_kernel.cu``'s
+#: ordinary cell: 6 adds, 4 maxes); the ablation kernels 17, the column-outer
+#: body (``tools/op_rates.py::COLUMN_BODY_CENSUS``: 10 adds, 4 maxes, 3 selects).
+OPS_PER_CELL = {"A": 26, "B": 21, "C": 10, "D": 10, "ablation": 17}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def score_bytes(modes, mask, rows, *tensors) -> int:
+    """Compulsory bytes of a DP over the cost planes: for each DP row a lane
+    computes, its code and the [l1, n_pad] cost slots the columns
+    ``modes`` / ``mask`` select (``cost_slots``: the other slots of the two
+    [4, l1, n_pad] planes are never read), plus the columns and ``tensors``
+    once each."""
+    from sarlacc_tpu_torch.ops.cuda_align import cost_slots
+
+    return int(rows) * 4 * (1 + len(cost_slots(modes, mask))) + nbytes(modes, mask, *tensors)
+
+
+def bound(n_bytes, ops):
+    """(least ms the card could take, what bounds it): bytes over the HBM
+    rate against operations over the float32 rate."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def achieved_occupancy(torch, stamps, warps_per_block=4, warps_per_sm=64):
+    """Mean resident warps an SM over the launch, as a share of the SM's
+    64: each block's warps times its lifetime (per-block global-timer
+    stamps), summed, over SMs x the launch's span."""
+    st = stamps.cpu().double()
+    span = float(st[:, 1].max() - st[:, 0].min())
+    busy = float((st[:, 1] - st[:, 0]).sum()) * warps_per_block
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return busy / (sms * warps_per_sm * span)
 
 
 def equal_scores(torch, what, got, want) -> float:
@@ -175,9 +241,14 @@ def phase_kernels(torch, st, batch, dev, max_pairs=4096):
         err = compare(torch, f"kernel A ({name})", D_k, D_p, S_k, S_p)
         ms = event_ms(lambda: dir_kernel(*args), 5, dev)
         plain_ms = event_ms(lambda: dp_align(*args), 3, dev)
+        cells = len(adaptor) * l1 * n_pad  # every row of every lane
+        bms, by = bound(score_bytes(ad.modes, mask, l1 * n_pad, S_k, D_k),
+                        cells * OPS_PER_CELL["A"])
         log(f"[kernels] A {name}: N={N} L={L} R={len(adaptor)} l1={l1} n_pad={n_pad}: "
-            f"dirs equal, max|dS|={err}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        rows_out.append(("A", name, err, ms, plain_ms))
+            f"dirs equal, max|dS|={err}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bms:.3f} ms ({by})")
+        rows_out.append(dict(key="A", name=name, err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by))
 
     # Kernel B: one pipeline-shaped bucket, rows = 1024, W = 256.
     rows, W, bw = 1024, 256, 100
@@ -212,9 +283,11 @@ def phase_kernels(torch, st, batch, dev, max_pairs=4096):
     err = compare(torch, "kernel B", dk, dp, sk, sp)
     ms = event_ms(lambda: pair_kernel(*bargs), 5, dev)
     plain_ms = event_ms(lambda: banded_pair_plain(*bargs), 1, dev)
+    bms, by = bound(nbytes(*bargs[:6], sk, dk), P * rows * W * OPS_PER_CELL["B"])
     log(f"[kernels] B pairs: P={P} rows={rows} W={W}: dirs equal, max|dscore|={err}, "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    rows_out.append(("B", "pairs", err, ms, plain_ms))
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+    rows_out.append(dict(key="B", name="pairs", err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by))
     return rows_out
 
 
@@ -246,60 +319,117 @@ def demux_inputs(n_reads=100_000, tolerance=250, n_barcodes=12, bc_len=12, seed=
     }
 
 
-def phase_score_kernels(torch, st, demux, dev):
-    """Kernels C and D against their plain versions at the demux shapes."""
+#: tune_alignment's default grid (gap_op_range (4, 10) x gap_ext_range (1, 5)).
+TUNE_GRID = [(go, ge) for go in range(4, 11) for ge in range(1, 6)]
+#: R = 150, every IUPAC class: a global segment that crosses column tiles.
+LONG_REF = ("ACGTRYKMSWBDHVN" * 10)[:150]
+
+
+def phase_score_kernels(torch, st, demux, bench, dev):
+    """Kernels C and D against their plain versions at the demux shapes, at
+    calibration's (the 19 926 stacked 250-bp ends of the bench batch: kernel
+    C as get_adaptor_thresholds runs it, kernel D over tune_alignment's 35
+    points for each adaptor) and with a multi-tile global segment."""
+    import numpy as np
+
     from sarlacc_tpu_torch.api.align_internal import prepare_adaptor, prepare_scores_input
+    from sarlacc_tpu_torch.core.encode import SeqBatch
     from sarlacc_tpu_torch.ops.align import dp_scores, dp_scores_segments
     from sarlacc_tpu_torch.ops.cuda_align import (
-        encode_mask, pack_segments, score_kernel, segments_kernel,
+        _launch_score, _launch_segments, encode_mask, pack_segments, score_kernel,
+        score_kernel_resources, score_tile, segments_kernel,
     )
 
+    res = score_kernel_resources()
+    for name, r in res.items():
+        log(f"[kernels] {name}: {r['registers']} registers a thread, {r['shared_bytes']} B "
+            f"shared a block, {r['spill_bytes']} B spilled, {r['blocks_per_sm']} blocks of "
+            f"{r['threads']} an SM: occupancy {r['occupancy']:.4f}")
     rows_out = []
-    a1 = prepare_adaptor(ADAPTOR1_BENCH, device=dev)
-    a2 = prepare_adaptor(ADAPTOR2, device=dev)
-    front = prepare_scores_input(a1, demux["front"])
-    l1, n_pad = front.plane_geometry()
-    planes, lengths, N = front.planes(), front.lengths, front.n
-    idx = lengths.to(torch.int64)[None, :]
 
-    for name, ad in (("adaptor1", a1), ("adaptor2", a2)):
-        args = (ad.modes, encode_mask(ad.matched), 5.0, 1.0, *planes)
-
-        def kern(args=args):
-            return score_kernel(*args, lengths, True)
-
-        def plain(args=args):
-            return dp_scores(*args, True)[:, :N].gather(0, idx)[0]
-
-        err = equal_scores(torch, f"kernel C ({name})", kern(), plain())
+    def row(key, name, n, cells, kern, plain, stamped, n_bytes, tj, detail):
+        err = equal_scores(torch, f"kernel {key} ({name})", kern(), plain())
         ms = event_ms(kern, 5, dev)
-        plain_ms = event_ms(plain, 2, dev)
-        log(f"[kernels] C {name}: N={N} l1={l1} R={len(ad)} local: scores equal, "
-            f"max|dS|={err}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        rows_out.append(("C", name, err, ms, plain_ms))
+        plain_ms = event_ms(plain, 1, dev)
+        stamps = stamped()
+        torch.cuda.synchronize()
+        occ = achieved_occupancy(torch, stamps)
+        bms, by = bound(n_bytes, cells * OPS_PER_CELL[key])
+        r = res[f"{key}@{tj}"]
+        log(f"[kernels] {key} {name}: N={n} {detail}: scores equal, max|dS|={err}, kernel "
+            f"{ms:.3f} ms = {cells / ms / 1e6:.1f} GCUPS, plain {plain_ms:.3f} ms, bound "
+            f"{bms:.3f} ms ({by}, {100 * bms / ms:.1f}%); tile {tj}, {r['registers']} "
+            f"registers, occupancy {r['occupancy']:.4f} theoretical, {occ:.4f} achieved")
+        rows_out.append(dict(key=key, name=name, err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by, gcups=cells / ms / 1e6, tile=tj,
+                             registers=r["registers"], achieved_occupancy=occ))
 
-    def seg_row(name, prepared, segments):
+    def c_row(name, ad, prepared):  # fitting mode, as the entry points run it
+        planes, lengths, N = prepared.planes(), prepared.lengths, prepared.n
+        args = (ad.modes, encode_mask(ad.matched), 5.0, 1.0, *planes)
+        idx = lengths.to(torch.int64)[None, :]
+        nblk = -(-N // 128)
+
+        def stamped():
+            stamps = torch.zeros((nblk, 3), dtype=torch.int64, device=dev)
+            _launch_score(*args, lengths, True, stamps=stamps)
+            return stamps
+
+        rows = float((lengths.double() + 1).sum())
+        row("C", name, N, rows * len(ad), lambda: score_kernel(*args, lengths, True),
+            lambda: dp_scores(*args, True)[:, :N].gather(0, idx)[0], stamped,
+            score_bytes(*args[:2], rows, lengths) + 4 * N, score_tile([(0, len(ad), True)]),
+            f"l1={planes[2].shape[0]} R={len(ad)} local")
+
+    def d_row(name, prepared, segments):
         l1_, n_pad_ = prepared.plane_geometry()
         modes, mask, segs = pack_segments(segments, dev)
         lens_k = torch.zeros(n_pad_, dtype=torch.int32, device=dev)
         lens_k[: prepared.n] = prepared.lengths
         args = (modes, mask, segs, *prepared.planes(), lens_k)
-        err = equal_scores(torch, f"kernel D ({name})", segments_kernel(*args),
-                           dp_scores_segments(*args))
-        ms = event_ms(lambda: segments_kernel(*args), 5, dev)
-        plain_ms = event_ms(lambda: dp_scores_segments(*args), 2, dev)
-        log(f"[kernels] D {name}: N={prepared.n} l1={l1_} nseg={len(segs)} "
-            f"R={[r for _, r, *_ in segs]}: scores equal (padded lanes included), "
-            f"max|dS|={err}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        rows_out.append(("D", name, err, ms, plain_ms))
 
-    seg_row("adaptors", front, [
+        def stamped():
+            stamps = torch.zeros((len(segs) * n_pad_ // 128, 3), dtype=torch.int64, device=dev)
+            _launch_segments(*args, stamps=stamps)
+            return stamps
+
+        rows = float((lens_k.double() + 1).sum())
+        rl = sorted({r for _, r, *_ in segs})
+        row("D", name, prepared.n, rows * sum(r for _, r, *_ in segs),
+            lambda: segments_kernel(*args), lambda: dp_scores_segments(*args), stamped,
+            score_bytes(modes, mask, rows, lens_k) + 4 * len(segs) * n_pad_,
+            score_tile(segs), f"l1={l1_} nseg={len(segs)} R in {rl} (padded lanes included)")
+
+    a1 = prepare_adaptor(ADAPTOR1_BENCH, device=dev)
+    a2 = prepare_adaptor(ADAPTOR2, device=dev)
+    front = prepare_scores_input(a1, demux["front"])
+    for name, ad in (("adaptor1", a1), ("adaptor2", a2)):
+        c_row(name, ad, front)
+    d_row("adaptors", front, [
         (a1.modes, a1.matched, 5.0, 1.0, True), (a2.modes, a2.matched, 5.0, 1.0, True),
     ])
-    del front, planes
+    del front
     bcs = [prepare_adaptor(b, device=dev) for b in demux["barcodes"]]
-    seg_row("barcodes", prepare_scores_input(bcs[0], demux["observed"]),
-            [(b.modes, b.matched, 5.0, 1.0, False) for b in bcs])
+    d_row("barcodes", prepare_scores_input(bcs[0], demux["observed"]),
+          [(b.modes, b.matched, 5.0, 1.0, False) for b in bcs])
+    # 24-bp barcodes take the 31-column tile (12- and 14-bp references the
+    # 15-column one, adaptor1 the 63-column one).
+    rng = np.random.default_rng(9)
+    bcs = [prepare_adaptor("".join(rng.choice(list("ACGT"), 24)), device=dev) for _ in range(12)]
+    d_row("barcodes24", prepare_scores_input(bcs[0], random_reads(100_000, 24, 10)),
+          [(b.modes, b.matched, 5.0, 1.0, False) for b in bcs])
+
+    # Calibration's shape: the stacked ends of the bench batch.
+    stacked = prepare_scores_input(a1, SeqBatch.concat(list(bench.front_and_back(250))))
+    c_row("adaptor1@calibration", a1, stacked)
+    for name, ad in (("tune:adaptor1", a1), ("tune:adaptor2", a2)):
+        d_row(name, stacked, [(ad.modes, ad.matched, go, ge, True) for go, ge in TUNE_GRID])
+    long_ad, empty = prepare_adaptor(LONG_REF, device=dev), prepare_adaptor("", device=dev)
+    d_row("multi-tile", stacked, [
+        (long_ad.modes, long_ad.matched, 5.0, 1.0, False),
+        (empty.modes, empty.matched, 5.0, 1.0, False),
+        (a2.modes, a2.matched, 4.0, 2.0, True),
+    ])
     return rows_out
 
 
@@ -325,15 +455,23 @@ def run_pipeline(torch, st, batch, adaptor1, dev, timings=None):
     return aligned, umis, groups, msa, cons
 
 
-def phase_golden(torch, st, kernels, dev):
+def reset(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def read_counts(kernels) -> dict:
+    return {k.symbol: k.launches for k in kernels}
+
+
+def phase_golden(torch, st, kernels, required, dev):
     batch = mock_batch(
         st, ADAPTOR1_GOLDEN, nmolecules=10, nreads_range=(4, 9),
         seqlen_range=(350, 600), seed=20240817,
     )
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     aligned, umis, groups, msa, cons = run_pipeline(torch, st, batch, ADAPTOR1_GOLDEN, dev)
-    counts = {k.symbol: k.launches for k in kernels}
+    counts = read_counts(kernels)
     snap = {
         "n_reads": int(len(batch)),
         "adaptor1_score": [round(float(s), 4) for s in aligned["adaptor1"]["score"]],
@@ -356,10 +494,11 @@ def phase_golden(torch, st, kernels, dev):
     bad = [key for key in want if snap[key] != want[key]]
     if bad:
         raise AssertionError(f"golden mismatch on the card in {bad}")
-    if min(counts.values()) == 0:
+    if min(counts[k.symbol] for k in required) == 0:
         raise AssertionError(f"a kernel never launched in the golden run: {counts}")
     log(f"[golden] {len(want)} keys equal tests/golden/pipeline_mock.json "
         f"({len(batch)} reads, {len(cons)} consensus reads); launches {counts}")
+    return counts
 
 
 #: Steps timed in the warm-up pass, (module, name): the plain-PyTorch
@@ -459,7 +598,7 @@ def step_report(totals) -> str:
     )
 
 
-def phase_pipeline(torch, st, batch, kernels, dev):
+def phase_pipeline(torch, st, batch, kernels, required, dev):
     totals, restore = timed_steps(torch)
     try:
         t0 = time.perf_counter()
@@ -470,12 +609,11 @@ def phase_pipeline(torch, st, batch, kernels, dev):
     log(f"[pipeline] warm-up pass {warm_s:.3f} s; synchronized step times: "
         f"{step_report(totals)}")
 
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     torch.cuda.reset_peak_memory_stats()
     timings: list = []
     aligned, _, groups, msa, cons = run_pipeline(torch, st, batch, ADAPTOR1_BENCH, dev, timings)
-    counts = {k.symbol: k.launches for k in kernels}
+    counts = read_counts(kernels)
     stages = {
         name: timings[i][1] - timings[i - 1][1] for i, (name, _) in enumerate(timings) if i
     }
@@ -486,7 +624,7 @@ def phase_pipeline(torch, st, batch, kernels, dev):
     empty = sum(1 for s in cons.seq_strings() if not s)
     if empty:
         raise AssertionError(f"{empty} empty consensus sequences")
-    if min(counts.values()) == 0:
+    if min(counts[k.symbol] for k in required) == 0:
         raise AssertionError(f"a kernel never launched in the main path: {counts}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[pipeline] {len(batch)} reads, {len(groups)} UMI groups, {len(cons)} "
@@ -496,7 +634,7 @@ def phase_pipeline(torch, st, batch, kernels, dev):
     return counts, aligned
 
 
-def phase_golden_demux(torch, st, kernel_d, dev):
+def phase_golden_demux(torch, st, kernels, kernel_d, dev):
     """tests/golden/barcode_demux.json (tests/test_golden_suite.py:127-156)."""
     import numpy as np
 
@@ -509,12 +647,13 @@ def phase_golden_demux(torch, st, kernel_d, dev):
         batch = st.read_fastq(fp)
     finally:
         os.remove(fp)
-    kernel_d.launches = 0
+    reset(kernels)
     aligned = st.adaptor_align(ADAPTOR1_GOLDEN, ADAPTOR2, reads=batch, tolerance=200, device=dev)
     observed = aligned["adaptor1"]["subseq"]["Sub1"]
     baligned = st.barcode_align(observed, barcodes, device=dev)
     thr = st.get_barcode_thresholds(baligned, nmads=3, device=dev)
-    launches = kernel_d.launches
+    counts = read_counts(kernels)
+    launches = counts[kernel_d.symbol]
     snap = {
         "barcodes": barcodes,
         "observed": observed.seq_strings(),
@@ -534,7 +673,8 @@ def phase_golden_demux(torch, st, kernel_d, dev):
     if launches == 0:
         raise AssertionError("kernel D never launched in the golden demux run")
     log(f"[golden-demux] {len(want)} keys equal tests/golden/barcode_demux.json "
-        f"({len(batch)} reads, {len(barcodes)} barcodes); kernel D launches {launches}")
+        f"({len(batch)} reads, {len(barcodes)} barcodes); launches {counts}")
+    return counts
 
 
 def phase_demux(torch, st, demux, kernels, dev):
@@ -572,13 +712,12 @@ def phase_demux(torch, st, demux, kernels, dev):
         restore()
     log(f"[demux] warm-up pass {warm_s:.3f} s (the planes of both end batches built "
         f"in it); synchronized step times: {step_report(totals)}")
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s, is_rev, bal = one_pass()
     elapsed = time.perf_counter() - t0
-    counts = {k.symbol: k.launches for k in kernels}
+    counts = read_counts(kernels)
     if counts["sarlacc_segments_kernel"] != 3:
         raise AssertionError(f"the demux pass should take 3 kernel-D launches: {counts}")
     if s.shape != (4, n) or not np.isfinite(s).all():
@@ -642,11 +781,10 @@ def phase_calibration(torch, st, batch, aligned, kernels, dev):
     log(f"[calibration] warm-up pass {sum(warm_secs.values()):.3f} s; synchronized "
         f"step times: {step_report(totals)}")
 
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     secs: dict[str, float] = {}
     tuned, thr, filt, ext, qal = card_pass(secs)
-    counts = {k.symbol: k.launches for k in kernels}
+    counts = read_counts(kernels)
 
     params = tuned["parameters"]
     if params["gapOpening"] is None or not (
@@ -786,17 +924,27 @@ def phase_tools(torch, dev):
     from sarlacc_tpu_torch.tools import op_mix, op_rates, profile_demux, score_ablation
     from sarlacc_tpu_torch.tools.timing import event_ms
 
-    checks = []  # (family, name, kernel, max_abs_err, ms, plain_ms)
+    checks = []  # (family, name, kernel, max_abs_err, ms, plain_ms, bound_ms, bound_by)
     args = score_ablation.make_inputs(100_000, 250, 51, dev)
+    modes, mask, *_, lengths = args
+    abl_rows = float((lengths.double() + 1).sum())
+    abl_bound = bound(score_bytes(modes, mask, abl_rows, lengths) + 4 * lengths.numel(),
+                      abl_rows * modes.numel() * OPS_PER_CELL["ablation"])
     for v, r in score_ablation.check(args).items():
-        checks.append(("ablation", v, score_ablation.KERNELS[v], r["max_abs_err"], r["ms"], r["plain_ms"]))
+        checks.append(("ablation", v, score_ablation.KERNELS[v], r["max_abs_err"], r["ms"],
+                       r["plain_ms"], *abl_bound))
     log("[tools] ablation: the five variants equal their plain versions at N=100000 L=250 "
-        "R=51 (full also equals kernel C)")
+        f"R=51 (full also equals kernel C); bound {abl_bound[0]:.3f} ms ({abl_bound[1]})")
+    rows = op_rates.grid_rows(dev)
+    chain_bytes = 4 * rows * 32 * 4  # three inputs and one output of [rows, 32] float32
     for fam, mod in (("op_mix", op_mix), ("op_rates", op_rates)):
         res = mod.check(dev)
         for cls, r in res.items():
-            checks.append((fam, f"{cls}@{r['iters']}iters", mod.KERNELS[cls], r["max_abs_err"],
-                           r["ms"], r["plain_ms"]))
+            it = r["iters"]
+            per_thread = (it * op_mix.DEPTH * op_mix.CLASSES[cls][1] + it if fam == "op_mix"
+                          else it * op_rates.CHAINS * op_rates.DEPTH)
+            checks.append((fam, f"{cls}@{it}iters", mod.KERNELS[cls], r["max_abs_err"],
+                           r["ms"], r["plain_ms"], *bound(chain_bytes, per_thread * rows * 32)))
         sass = "instruction counts intact" if all(r["sass_checked"] for r in res.values()) else \
             "cuobjdump missing, instruction counts not checked"
         log(f"[tools] {fam}: {len(res)} classes equal their plain versions at 4 iterations; {sass}")
@@ -818,13 +966,15 @@ def phase_tools(torch, dev):
     err = equal_scores(torch, "profile_demux pure kernel C", got, want)
     checks.append(("profile_demux", "a1", SCORE_KERNEL, err,
                    event_ms(lambda: profile_demux.pure_kernel(a1, planes, lengths), 3, dev),
-                   event_ms(lambda: dp_scores(*pargs, True), 1, dev)))
+                   event_ms(lambda: dp_scores(*pargs, True), 1, dev),
+                   *bound(score_bytes(*pargs[:2], float((lengths.double() + 1).sum()), lengths)
+                          + 4 * lengths.numel(),
+                          float((lengths.double() + 1).sum()) * len(a1) * OPS_PER_CELL["C"])))
     del prep, planes, front
 
     kernels = [*score_ablation.KERNELS.values(), *op_mix.KERNELS.values(),
                *op_rates.KERNELS.values(), SCORE_KERNEL]
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     t0 = time.perf_counter()
     results = {
         "ablation": score_ablation.measure(reps=2, check_first=False, args=args, log=log),
@@ -832,7 +982,7 @@ def phase_tools(torch, dev):
         "op_rates": op_rates.measure(reps=2, check_first=False, log=log),
         "profile_demux": profile_demux.measure(reps=2, log=log),
     }
-    counts = {k.symbol: k.launches for k in kernels}
+    counts = read_counts(kernels)
     if min(counts.values()) == 0:
         raise AssertionError(f"a tool kernel never launched in the tools run: {counts}")
     log(f"[tools] four tools at their defaults in {time.perf_counter() - t0:.1f} s; launches {counts}")
@@ -858,7 +1008,6 @@ def main() -> int:
 
     from sarlacc_tpu_torch.tools import op_mix, op_rates, score_ablation
 
-    pipeline_kernels = (DIR_KERNEL, PAIR_KERNEL)
     kernels = (DIR_KERNEL, PAIR_KERNEL, SCORE_KERNEL, SEGMENTS_KERNEL)
     smi = phase_environment(torch)
     phase_build(kernels + tuple(score_ablation.KERNELS.values()) + tuple(op_mix.KERNELS.values())
@@ -870,48 +1019,65 @@ def main() -> int:
     demux = demux_inputs()
     dev = torch.device("cuda")
     krows = phase_kernels(torch, st, bench, dev)
-    krows += phase_score_kernels(torch, st, demux, dev)
-    phase_golden(torch, st, pipeline_kernels, dev)
-    counts, aligned = phase_pipeline(torch, st, bench, pipeline_kernels, dev)
-    phase_golden_demux(torch, st, SEGMENTS_KERNEL, dev)
-    demux_counts = phase_demux(torch, st, demux, kernels, dev)
-    cal_counts = phase_calibration(torch, st, bench, aligned, kernels, dev)
+    krows += phase_score_kernels(torch, st, demux, bench, dev)
+    # Each path runs with every count at 0 and reports all four kernels.
+    by_path = {"golden": phase_golden(torch, st, kernels, (DIR_KERNEL, PAIR_KERNEL), dev)}
+    by_path["pipeline"], aligned = phase_pipeline(
+        torch, st, bench, kernels, (DIR_KERNEL, PAIR_KERNEL), dev)
+    by_path["golden_demux"] = phase_golden_demux(torch, st, kernels, SEGMENTS_KERNEL, dev)
+    by_path["demux"] = phase_demux(torch, st, demux, kernels, dev)
+    by_path["calibration"] = phase_calibration(torch, st, bench, aligned, kernels, dev)
     del bench, aligned, demux
+    reset(kernels)
     phase_umi(torch, st, dev)
+    by_path["umi"] = read_counts(kernels)
     tool_checks, tool_counts, _ = phase_tools(torch, dev)
+    by_path["tools"] = {k.symbol: tool_counts.get(k.symbol, 0) for k in kernels}
 
-    # Each kernel's launches come from the path it serves: A and B from the
-    # correction pipeline, C from calibration, D from the demux pass, the
-    # tools' kernels (and C again, for the demux profile) from the tools run.
-    desc = {
-        "A": (DIR_KERNEL, "sarlacc_tpu/ops/pallas_align.py:193", counts),
-        "B": (PAIR_KERNEL, "sarlacc_tpu/ops/pallas_msa.py:99", counts),
-        "C": (SCORE_KERNEL, "sarlacc_tpu/ops/pallas_align.py:100", cal_counts),
-        "D": (SEGMENTS_KERNEL, "sarlacc_tpu/ops/pallas_align.py:564", demux_counts),
+    def path_launches(symbol):
+        each = {path: c[symbol] for path, c in by_path.items() if c.get(symbol)}
+        return sum(each.values()), each
+
+    replaces = {
+        "A": (DIR_KERNEL, "sarlacc_tpu/ops/pallas_align.py:193"),
+        "B": (PAIR_KERNEL, "sarlacc_tpu/ops/pallas_msa.py:99"),
+        "C": (SCORE_KERNEL, "sarlacc_tpu/ops/pallas_align.py:100"),
+        "D": (SEGMENTS_KERNEL, "sarlacc_tpu/ops/pallas_align.py:564"),
     }
     report = []
-    for key, name, err, ms, plain_ms in krows:
-        kern, replaces, path_counts = desc[key]
+    for r in krows:
+        kern, repl = replaces[r["key"]]
+        launches, each = path_launches(kern.symbol)
+        extra = {k: r[k] for k in ("gcups", "tile", "registers", "achieved_occupancy") if k in r}
         report.append({
-            "name": f"{kern.symbol.removeprefix('sarlacc_')}[{name}]",
+            "name": f"{kern.symbol.removeprefix('sarlacc_')}[{r['name']}]",
             "route": "cuda",
             "source": os.path.relpath(kern.source, HERE),
-            "replaces": replaces,
-            "launches": path_counts[kern.symbol],
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
+            "replaces": repl,
+            "launches": launches,
+            "launches_by_path": each,
+            "max_abs_err": r["err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+            **extra,
         })
-    for family, name, kern, err, ms, plain_ms in tool_checks:
+    for family, name, kern, err, ms, plain_ms, bms, by in tool_checks:
         report.append({
             "name": f"{kern.symbol.removeprefix('sarlacc_')}[{family}:{name}]",
             "route": "cuda",
             "source": os.path.relpath(kern.source, HERE),
             "replaces": TOOL_REPLACES[family],
             "launches": tool_counts[kern.symbol],
+            "launches_by_path": {"tools": tool_counts[kern.symbol]},
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
+            "bound_ms": bms,
+            "bound_by": by,
+            "library_ms": None,
         })
     print(smi)
     print(json.dumps({"kernels": report}))

@@ -1,7 +1,8 @@
 """Native host library: first-use g++ build + ctypes bindings.
 
-Compiles the JAX package's ``sarlacc_tpu/native/msa_host.cpp`` (read by path,
-with the same flags) into ``sarlacc_tpu_torch/_build/``.  Unlike the JAX
+Compiles the port's own ``sarlacc_tpu_torch/native/msa_host.cpp`` (a copy of
+the JAX package's host library, built with the same flags) into
+``sarlacc_tpu_torch/_build/``.  Unlike the JAX
 loader there is no Python fallback: a missing compiler or a failed build
 raises, and every binding always returns a result.
 """
@@ -24,10 +25,7 @@ __all__ = [
     "verify_pairs_native", "ABORTED", "HOST_SOURCE",
 ]
 
-HOST_SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "sarlacc_tpu", "native", "msa_host.cpp",
-)
+HOST_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "msa_host.cpp")
 _CXX = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None

@@ -2,8 +2,8 @@
 
 Two kinds of shared object land in ``sarlacc_tpu_torch/_build/``:
 
-* the host library, compiled by ``g++`` from the JAX package's own
-  ``sarlacc_tpu/native/msa_host.cpp`` (read by path, never copied);
+* the host library, compiled by ``g++`` from the port's own copy of the
+  host C++, ``sarlacc_tpu_torch/native/msa_host.cpp``;
 * one library per hand-written CUDA kernel in ``sarlacc_tpu_torch/csrc/``,
   compiled by ``nvcc`` for ``sm_90a`` with a plain C interface and called
   through ctypes (no PyTorch headers, so a build takes seconds).
@@ -91,31 +91,39 @@ class CudaKernel:
     The library is built on the first :meth:`launch`, never at import, so
     the CPU-only test environment imports every module cleanly.  The entry
     point returns ``cudaGetLastError()`` after its launch; non-zero raises.
-    ``launches`` counts successful launches and nothing else.
+    ``launches`` counts successful launches and nothing else.  ``defines``
+    (``NAME=VALUE`` strings, passed as ``-D``) give another build of the
+    same source, cached apart: a measurement tool's variant.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
+    def __init__(self, source: str, symbol: str, argtypes: list, defines=()):
         self.source = os.path.join(CSRC_DIR, source)
         self.symbol = symbol
         self.argtypes = argtypes
+        self.defines = tuple(defines)
         self.launches = 0
         self._fn = None
 
+    def command(self, nvcc: str) -> list[str]:
+        return [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in self.defines), self.source]
+
     def build(self) -> str:
         name = os.path.splitext(os.path.basename(self.source))[0]
-        return build_library(
-            name, [self.source], [nvcc_path(), *NVCC_FLAGS, self.source]
-        )
+        return build_library(name, [self.source], self.command(nvcc_path()))
+
+    def function(self, symbol: str, argtypes: list):
+        """Another ``int``-returning C function of the same library (not a
+        launch: nothing is counted)."""
+        fn = getattr(ctypes.CDLL(self.build()), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        return fn
 
     def _entry(self):
         if self._fn is None:
             with _LOCK:
                 if self._fn is None:
-                    lib = ctypes.CDLL(self.build())
-                    fn = getattr(lib, self.symbol)
-                    fn.restype = ctypes.c_int
-                    fn.argtypes = self.argtypes
-                    self._fn = fn
+                    self._fn = self.function(self.symbol, self.argtypes)
         return self._fn
 
     def launch(self, *args) -> None:

@@ -16,6 +16,16 @@ costs for all four degeneracy modes; one plane build serves every kernel.
   ``(reference, penalties, mode)`` segments in one launch (kernel D, same
   source; plain :func:`..ops.align.dp_scores_segments`).
 
+Kernels C and D keep no DP state in device memory.  Each launch runs at
+the narrowest tile width of :data:`SCORE_TILES` that holds its widest
+segment (:func:`score_tile`); a segment wider than the tile hands each
+column tile's last column to the next through a scratch slot of
+[2, l1, n_pad] floats, which the wrappers allocate.  Kernel D's segments
+run concurrently, so each wide segment of a launch holds its own slot;
+:func:`launch_groups` splits a call into launches that need at most
+:data:`MAX_SCRATCH_BYTES` of slots (and at most :data:`MAX_SEGMENTS`
+segments), and the launches reuse one scratch buffer.
+
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 the plain version.  Nothing catches a build or launch failure.
 """
@@ -33,17 +43,22 @@ from .align import dp_align, dp_scores, dp_scores_segments
 __all__ = [
     "DIR_KERNEL",
     "SCORE_KERNEL",
+    "SCORE_TILES",
     "SEGMENTS_KERNEL",
     "build_cost_planes",
+    "cost_slots",
     "dir_kernel",
     "encode_mask",
     "fit_dirs",
     "fit_scores",
     "fit_scores_from_planes",
     "fit_scores_segments",
+    "launch_groups",
     "pack_segments",
     "plane_dims",
     "score_kernel",
+    "score_kernel_resources",
+    "score_tile",
     "segments_kernel",
 ]
 
@@ -59,18 +74,37 @@ DIR_KERNEL = CudaKernel(
 )
 
 #: ``csrc/score_kernel.cu``: replaces ``sarlacc_tpu/ops/pallas_align.py::_kernel``.
+#: The last pointer before the stream (here and in :data:`SEGMENTS_KERNEL`)
+#: is the per-block timer stamps, for measurement only: the public wrappers
+#: pass null, and only :func:`_launch_score` / :func:`_launch_segments` set it.
 SCORE_KERNEL = CudaKernel(
     "score_kernel.cu",
     "sarlacc_score_kernel",
-    [_P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    [_P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
 )
 
 #: ``csrc/score_kernel.cu``: replaces ``sarlacc_tpu/ops/pallas_align.py::_segments_kernel``.
 SEGMENTS_KERNEL = CudaKernel(
     "score_kernel.cu",
     "sarlacc_segments_kernel",
-    [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
 )
+
+#: The tile widths kernels C and D are compiled for (``TJ`` in
+#: ``csrc/score_kernel.cu``; the entry points refuse any other value).
+SCORE_TILES = (15, 31, 63)
+
+#: Most segments one kernel-D launch takes (the grid's y extent); a call
+#: with more takes several launches.
+MAX_SEGMENTS = 65535
+
+#: Most bytes of tile hand-off scratch a kernel-D call allocates: one
+#: [2, l1, n_pad] float32 slot for each segment of a launch wider than the
+#: tile (205 MB a slot at 100 000 reads x l1 256, 41 MB at 19 968), so
+#: wider calls are split into launches of fewer wide segments.  A segment
+#: takes a slot whatever the budget, so a call always makes progress
+#: (kernel C, one segment, takes at most one slot).
+MAX_SCRATCH_BYTES = 512 << 20
 
 
 def plane_dims(N: int, L: int) -> tuple[int, int]:
@@ -172,10 +206,73 @@ def fit_dirs(
     return scores, dirs, l1
 
 
+def _ordinary(rlen: int, local: bool) -> int:
+    """A segment's columns in the tiles: fitting mode peels off the last."""
+    return rlen - (1 if local and rlen > 0 else 0)
+
+
+def score_tile(segs) -> int:
+    """The narrowest tile width that holds every ``(start, rlen, local,
+    ...)`` segment, else the widest (and several tiles)."""
+    widest = max((_ordinary(rlen, local) for _, rlen, local, *_ in segs), default=0)
+    return next((tj for tj in SCORE_TILES if widest <= tj), SCORE_TILES[-1])
+
+
+def launch_groups(segs, tj: int, l1: int, n_pad: int) -> list:
+    """Kernel D's launches for ``(start, rlen, local, ...)`` segments at
+    tile width ``tj``: consecutive groups ``(s0, s1, slots)``, each at most
+    :data:`MAX_SEGMENTS` segments and at most as many segments wider than
+    the tile as :data:`MAX_SCRATCH_BYTES` holds slots of [2, l1, n_pad]
+    float32 (at least one).  ``slots`` gives each segment of the group its
+    hand-off slot, numbered from 0 in the group, or -1 when its columns fit
+    one tile."""
+    cap = max(1, MAX_SCRATCH_BYTES // (2 * l1 * n_pad * 4))
+    groups, s0, slots, wide_n = [], 0, [], 0
+    for s, (_, rlen, local, *_) in enumerate(segs):
+        wide = _ordinary(rlen, local) > tj
+        if len(slots) == MAX_SEGMENTS or (wide and wide_n == cap):
+            groups.append((s0, s, slots))
+            s0, slots, wide_n = s, [], 0
+        slots.append(wide_n if wide else -1)
+        wide_n += wide
+    if slots:
+        groups.append((s0, len(segs), slots))
+    return groups
+
+
+def cost_slots(modes, mask) -> list[int]:
+    """The slots of the [4, l1, n_pad] match (0-3) and mismatch (4-7) cost
+    planes that columns ``modes`` / ``mask`` select over the read codes
+    0-7: what kernels C and D load a row (their ``need``), so the planes'
+    only compulsory reads."""
+    m = modes.cpu().to(torch.int64).clamp(1, 4) - 1
+    hit = (mask.cpu().to(torch.int64)[:, None] >> torch.arange(8)) & 1
+    return sorted(set(torch.where(hit.bool(), m[:, None], m[:, None] + 4).flatten().tolist()))
+
+
+def _scratch(nslots: int, l1: int, n_pad: int, dev):
+    if nslots == 0:
+        return None
+    return torch.empty((nslots, 2, l1, n_pad), dtype=torch.float32, device=dev)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def score_kernel(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, lengths, local=True):
     """Launch kernel C: scores f32 [N] = ``S[lengths[i], i]`` after the last
     column; the same numbers as :func:`..ops.align.dp_scores` gathered at
     ``lengths``.  ``modes`` must not be empty."""
+    return _launch_score(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, lengths, local)
+
+
+def _launch_score(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, lengths, local=True,
+                  stamps=None, kernel=SCORE_KERNEL, tj=None):
+    """:func:`score_kernel`, with what only measurement sets: ``stamps``,
+    int64 [ceil(N / 128), 3] on the card, filled per block with its start
+    and end (ns, the global timer) and its SM; another build of the source
+    (``kernel``); a forced tile width ``tj``."""
     dev = codes_k.device
     l1, n_pad = codes_k.shape
     R = int(modes.shape[0])
@@ -191,14 +288,16 @@ def score_kernel(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, lengths
     out = torch.empty(N, dtype=torch.float32, device=dev)
     if N == 0:
         return out
-    S = torch.empty((l1, n_pad), dtype=torch.float32, device=dev)
-    H = torch.empty_like(S)
+    if stamps is not None:
+        check_tensor(stamps, "stamps", torch.int64, (-(-N // 128), 3))
+    tj = score_tile([(0, R, bool(local))]) if tj is None else tj
+    scratch = _scratch(int(_ordinary(R, bool(local)) > tj), l1, n_pad, dev)
     go, ge = _gap_pair(gap_open, gap_ext)
-    SCORE_KERNEL.launch(
+    kernel.launch(
         modes.data_ptr(), mask.data_ptr(), R, go, ge, int(bool(local)),
         costm.data_ptr(), costmm.data_ptr(), codes_k.data_ptr(),
-        lengths.data_ptr(), N, l1, n_pad, S.data_ptr(), H.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        lengths.data_ptr(), N, l1, n_pad, tj, _ptr(scratch),
+        out.data_ptr(), _ptr(stamps), torch.cuda.current_stream(dev).cuda_stream,
     )
     return out
 
@@ -206,8 +305,17 @@ def score_kernel(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, lengths
 def segments_kernel(modes, mask, segs, costm, costmm, codes_k, lens_k):
     """Launch kernel D; same contract as :func:`..ops.align.dp_scores_segments`.
 
-    Returns f32 [nseg, n_pad] on the card.
+    Returns f32 [nseg, n_pad] on the card, from one launch for each group of
+    :func:`launch_groups` (one for every call of the bench's paths).
     """
+    return _launch_segments(modes, mask, segs, costm, costmm, codes_k, lens_k)
+
+
+def _launch_segments(modes, mask, segs, costm, costmm, codes_k, lens_k, stamps=None,
+                     kernel=SEGMENTS_KERNEL, tj=None):
+    """:func:`segments_kernel`, with what only measurement sets: ``stamps``,
+    int64 [nseg * n_pad / 128, 3], as for :func:`_launch_score`; another
+    build of the source (``kernel``); a forced tile width ``tj``."""
     dev = codes_k.device
     l1, n_pad = codes_k.shape
     rtot = int(modes.shape[0])
@@ -224,22 +332,55 @@ def segments_kernel(modes, mask, segs, costm, costmm, codes_k, lens_k):
     out = torch.empty((nseg, n_pad), dtype=torch.float32, device=dev)
     if nseg == 0 or n_pad == 0:
         return out
+    if stamps is not None:
+        check_tensor(stamps, "stamps", torch.int64, (nseg * n_pad // 128, 3))
+    tj = score_tile(segs) if tj is None else tj
+    groups = launch_groups(segs, tj, l1, n_pad)
+    slots = [k for _, _, g in groups for k in g]
     seg_i = torch.tensor(
-        [[start, rlen, int(bool(local))] for start, rlen, local, _, _ in segs],
+        [[start, rlen, int(bool(local)), slot]
+         for (start, rlen, local, _, _), slot in zip(segs, slots)],
         dtype=torch.int32,
     ).to(dev)
     seg_f = torch.tensor(
         [_gap_pair(go, ge) for *_, go, ge in segs], dtype=torch.float32
     ).to(dev)
-    S = torch.empty((l1, n_pad), dtype=torch.float32, device=dev)
-    H = torch.empty_like(S)
-    SEGMENTS_KERNEL.launch(
-        modes.data_ptr(), mask.data_ptr(), seg_i.data_ptr(), seg_f.data_ptr(),
-        nseg, costm.data_ptr(), costmm.data_ptr(), codes_k.data_ptr(),
-        lens_k.data_ptr(), l1, n_pad, S.data_ptr(), H.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    scratch = _scratch(max(max(g) + 1 for _, _, g in groups), l1, n_pad, dev)
+    blocks = n_pad // 128
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for s0, s1, _ in groups:  # one stream: the launches share the scratch in turn
+        kernel.launch(
+            modes.data_ptr(), mask.data_ptr(), seg_i[s0].data_ptr(), seg_f[s0].data_ptr(),
+            s1 - s0, costm.data_ptr(), costmm.data_ptr(), codes_k.data_ptr(),
+            lens_k.data_ptr(), l1, n_pad, tj, _ptr(scratch), out[s0].data_ptr(),
+            None if stamps is None else stamps[s0 * blocks].data_ptr(), stream,
+        )
     return out
+
+
+def score_kernel_resources(kernel=SCORE_KERNEL) -> dict:
+    """Kernels C and D as compiled at each tile width, from
+    ``cudaFuncGetAttributes`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``: registers a thread,
+    static shared bytes a block, spill bytes a thread, resident blocks an
+    SM, threads a block, and the theoretical occupancy (resident warps over
+    the SM's 64).  Keyed ``"C@63"``, ``"D@15"`` and so on.  ``kernel``: a
+    build of ``csrc/score_kernel.cu`` (another one only for measurement)."""
+    fn = kernel.function("sarlacc_score_attrs", [_I, _I, _P])
+    res = {}
+    for which, name in ((0, "C"), (1, "D")):
+        for tj in SCORE_TILES:
+            buf = (ctypes.c_int * 5)()
+            rc = fn(which, tj, ctypes.cast(buf, ctypes.c_void_p))
+            if rc != 0:
+                raise RuntimeError(f"sarlacc_score_attrs({which}, {tj}) failed: CUDA error {rc}")
+            regs, smem, spill, blocks, threads = list(buf)
+            res[f"{name}@{tj}"] = {
+                "registers": regs, "shared_bytes": smem, "spill_bytes": spill,
+                "blocks_per_sm": blocks, "threads": threads,
+                "occupancy": blocks * threads / 32 / 64,
+            }
+    return res
 
 
 def _check_planes(planes, l1: int, n_pad: int):

@@ -10,11 +10,14 @@ arguments and defaults:
 * :mod:`.score_ablation` (``scripts/microbench_score_ablation.py``): kernel
   C with its row state, cost-plane reads or vertical-gap max ablated;
 * :mod:`.op_mix` (``scripts/microbench_op_mix.py``): dependent chains per
-  instruction class, and the ALU ceiling of kernel C's column body;
+  instruction class, and the ALU ceilings of the score DP's cell bodies;
 * :mod:`.op_rates` (``scripts/microbench_vpu_ops.py``): independent chains
   for per-class throughput, and a shuffle's cost in add slots.
 
 Each function takes ``device=`` (``None`` means CUDA).  On the CPU the
 kernels' plain versions run, for rehearsal at small sizes only: times there
 are host-clock CPU times and say so.
+
+:mod:`.score_tiles` has no TPU counterpart: it sweeps kernels C and D's
+compiled tile widths and register budgets, so it needs the card.
 """

@@ -1,5 +1,5 @@
 """Dependent-chain rates per instruction class on the card, and the ALU
-ceiling of the score-only DP's column body.
+ceilings of the score-only DP's cell bodies.
 
     python -m sarlacc_tpu_torch.tools.op_mix
 
@@ -16,9 +16,9 @@ every SM (``csrc/op_rates.cu``, entries ``sarlacc_op_mix_*``):
 * ``shift-stage(3op)``: ``max(lane < sh ? NEG : shfl_up(x, sh), b)`` with
   ``sh = 1 << s % 5``, 3 ops: one stage of a warp's log-shift prefix max.
 
-It prints ops/s per class and the ALU ceiling of kernel C's column body
-(and of a warp-split body) from their censuses
-(:data:`.op_rates.KERNEL_C_CENSUS`), instead of the TPU script's 45 slots.
+It prints ops/s per class and the ALU ceilings of kernels C and D's
+row-tile body, the ablation's column body and a warp-split body from their
+censuses (:data:`.op_rates.BODIES`), instead of the TPU script's 45 slots.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import torch
 from ..device import resolve_device
 from ..native.build import CudaKernel
 from .op_rates import (
-    KERNEL_C_CENSUS, SELECTS, WARP_SPLIT_CENSUS, _check_chain_inputs, _f32, census_of,
+    BODIES, SELECTS, _check_chain_inputs, _f32, census_of,
     chain_inputs, grid_rows, lane_shift_up, require_ops, sass_census,
 )
 from .timing import device_label, event_ms
@@ -183,10 +183,10 @@ def measure(device=None, iters: int = ITERS, reps: int = 5,
         out["classes"][cls] = {"ms": ms, "rate": rate}
         log(f"[op_mix] {cls:>16}: {ms:8.3f} ms {clock}  {rate:.4e} ops/s")
     rates = {cls: v["rate"] for cls, v in out["classes"].items()}
-    for name, cen in (("kernel C", KERNEL_C_CENSUS), ("warp-split", WARP_SPLIT_CENSUS)):
+    for name, cen in BODIES:
         g = mix_ceiling(cen, rates) / 1e9
         out[f"{name} ceiling GCUPS"] = g
-        log(f"[op_mix] {name} column body {cen}: mix ceiling {g:.1f} GCUPS")
+        log(f"[op_mix] {name} {cen}: mix ceiling {g:.1f} GCUPS")
     return out
 
 

@@ -1,4 +1,4 @@
-"""Attribute kernel C's time on the card by ablation.
+"""Attribute the column-outer score DP's time on the card by ablation.
 
     python -m sarlacc_tpu_torch.tools.score_ablation [N] [L] [R]
 
@@ -6,10 +6,13 @@ Counterpart of ``scripts/microbench_score_ablation.py`` (``_kernel_ablate``
 launched by ``_launch``, ``pallas_call`` :123), with its defaults (N =
 100 000 reads, L = 250, R = 51 columns, numpy seed 0, random planes as
 its :149-157, gap open 4 + extension 1, global mode).  Each variant is
-kernel C's per-read DP with one suspect of the Hopper design removed, at
-the same launch shape (``csrc/score_ablation.cu``):
+the column-outer per-read DP (one thread per read walking the columns,
+S and H read and written in device-memory planes every cell) with one
+suspect removed, at the same launch shape (``csrc/score_ablation.cu``).
+Kernel C runs rows outer inside register tiles (``csrc/score_kernel.cu``),
+the design these answers point to; both designs give the same bits:
 
-* ``full``: kernel C's body, bit-identical to kernel C;
+* ``full``: the column-outer body, its scores equal to kernel C's;
 * ``no-vgap``: the running vertical-gap max dropped (the TPU's
   ``no-prefix``, whose log-shift scan is this running max here);
 * ``no-dyncost``: a constant cost, no cost-plane loads;

@@ -19,9 +19,11 @@ import torch
 from sarlacc_tpu_torch.api.align_internal import prepare_adaptor
 from sarlacc_tpu_torch.core.encode import SeqBatch
 from sarlacc_tpu_torch.ops.align import dp_align, dp_scores, dp_scores_segments, prepare_reads
+from sarlacc_tpu_torch.ops import cuda_align
 from sarlacc_tpu_torch.ops.cuda_align import (
     DIR_KERNEL,
     SCORE_KERNEL,
+    SCORE_TILES,
     SEGMENTS_KERNEL,
     build_cost_planes,
     dir_kernel,
@@ -32,6 +34,8 @@ from sarlacc_tpu_torch.ops.cuda_align import (
     pack_segments,
     plane_dims,
     score_kernel,
+    score_kernel_resources,
+    score_tile,
     segments_kernel,
 )
 from sarlacc_tpu_torch.ops.cuda_msa import PAIR_KERNEL, banded_pair, banded_pair_plain, pair_kernel
@@ -39,6 +43,9 @@ from sarlacc_tpu_torch.ops.cuda_msa import PAIR_KERNEL, banded_pair, banded_pair
 ADAPTOR = "ACGCTAGCATCAGTCNNNNCACAGCTACGANNNNNNNNCGTACGCAT"
 ADAPTOR2 = "TGCATCGATCGCAT"
 BARCODE = "ACGTTGCACGTA"
+#: R = 150, every IUPAC class: a global segment of this length crosses
+#: kernels C and D's column tiles (3 tiles of 64, the last partial).
+LONG_REF = ("ACGTRYKMSWBDHVN" * 10)[:150]
 
 
 @pytest.fixture
@@ -149,10 +156,12 @@ def _score_inputs(device, ref, n, maxl, zero_lengths=False):
     return ad, planes, lengths, l1, n_pad
 
 
-# R = 1, 12, 51; l1 = 32 and 256; n off the 128-thread block and zero lengths.
+# R = 1, 12, 51, 150 (several column tiles); l1 = 32 and 256; n off the
+# 128-thread block and zero lengths.
 SCORE_SHAPES = [
     ("A", 200, 31, True), ("A", 200, 31, False), (BARCODE, 300, 31, False),
     (BARCODE, 77, 250, True), (ADAPTOR, 1000, 250, True), (ADAPTOR, 129, 250, False),
+    (LONG_REF, 300, 250, False), (LONG_REF, 131, 250, True),
 ]
 
 
@@ -181,7 +190,9 @@ def _grid_segments(ad, nseg):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "ref,n,maxl,nseg", [(BARCODE, 300, 31, 1), (BARCODE, 1000, 31, 12), (ADAPTOR, 257, 250, 35), (ADAPTOR2, 130, 250, 12)]
+    "ref,n,maxl,nseg",
+    [(BARCODE, 300, 31, 1), (BARCODE, 1000, 31, 12), (ADAPTOR, 257, 250, 35), (ADAPTOR2, 130, 250, 12),
+     (LONG_REF, 300, 250, 6)],
 )
 @pytest.mark.parametrize("zero_lengths", [False, True])
 def test_segments_kernel_matches_plain(cuda_device, ref, n, maxl, nseg, zero_lengths):
@@ -191,6 +202,9 @@ def test_segments_kernel_matches_plain(cuda_device, ref, n, maxl, nseg, zero_len
     if nseg > 1:  # an empty reference among the others, global and local
         segments[1] = (empty.modes, empty.matched, 5.0, 1.0, False)
         segments[-1] = (empty.modes, empty.matched, 5.0, 1.0, True)
+    if len(ref) > 63:  # a short local segment between the multi-tile ones
+        short = prepare_adaptor(ADAPTOR2, device=cuda_device)
+        segments[2] = (short.modes, short.matched, 4.0, 2.0, True)
     modes, mask, segs = pack_segments(segments, cuda_device)
     lens_k = torch.zeros(n_pad, dtype=torch.int32, device=cuda_device)
     lens_k[:n] = lengths
@@ -203,6 +217,64 @@ def test_segments_kernel_matches_plain(cuda_device, ref, n, maxl, nseg, zero_len
     assert torch.equal(got, want)  # padded lanes (length 0) included
     via = fit_scores_segments(planes, lengths, segments, l1, n_pad)
     assert torch.equal(via, want[:, :n])
+
+
+@pytest.mark.cuda
+def test_score_kernels_resources_and_stamps(cuda_device):
+    """Every tile width of kernels C and D is queried from the runtime and
+    fits the SM; a stamped launch gives every block a start, an end and an
+    SM, and the same scores."""
+    res = score_kernel_resources()
+    assert sorted(res) == sorted(f"{k}@{tj}" for k in "CD" for tj in SCORE_TILES)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for r in res.values():
+        assert 0 < r["registers"] <= 255 and r["threads"] == 128
+        assert r["blocks_per_sm"] >= 1 and 0 < r["occupancy"] <= 1
+    ad, planes, lengths, l1, n_pad = _score_inputs(cuda_device, ADAPTOR2, 300, 250)
+    segments = _grid_segments(ad, 3)
+    modes, mask, segs = pack_segments(segments, cuda_device)
+    assert score_tile(segs) == 15
+    lens_k = torch.zeros(n_pad, dtype=torch.int32, device=cuda_device)
+    lens_k[:300] = lengths
+    stamps = torch.zeros((3 * n_pad // 128, 3), dtype=torch.int64, device=cuda_device)
+    got = cuda_align._launch_segments(modes, mask, segs, *planes, lens_k, stamps=stamps)
+    want = segments_kernel(modes, mask, segs, *planes, lens_k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    st = stamps.cpu()
+    assert bool((st[:, 1] >= st[:, 0]).all()) and bool((st[:, 0] > 0).all())
+    assert bool((st[:, 2] >= 0).all()) and bool((st[:, 2] < sms).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "max_segments,slot_budget,launches",
+    [(65535, 1, 6), (65535, 4, 2), (2, 64, 4), (3, 2, 3)],
+)
+def test_segments_kernel_groups_launches(cuda_device, monkeypatch, max_segments, slot_budget,
+                                         launches):
+    """More wide (multi-tile) segments than the scratch budget's slots, or
+    more segments than a launch takes: several launches that share one
+    scratch buffer, with the scores and per-block stamps of one."""
+    ad, planes, lengths, l1, n_pad = _score_inputs(cuda_device, LONG_REF, 300, 250)
+    short = prepare_adaptor(ADAPTOR2, device=cuda_device)
+    segments = _grid_segments(ad, 7)
+    segments[3] = (short.modes, short.matched, 4.0, 2.0, True)  # one tile: no slot
+    modes, mask, segs = pack_segments(segments, cuda_device)
+    lens_k = torch.zeros(n_pad, dtype=torch.int32, device=cuda_device)
+    lens_k[:300] = lengths
+    monkeypatch.setattr(cuda_align, "MAX_SEGMENTS", max_segments)
+    monkeypatch.setattr(cuda_align, "MAX_SCRATCH_BYTES", slot_budget * 2 * l1 * n_pad * 4)
+    assert len(cuda_align.launch_groups(segs, score_tile(segs), l1, n_pad)) == launches
+    stamps = torch.zeros((7 * n_pad // 128, 3), dtype=torch.int64, device=cuda_device)
+    before = SEGMENTS_KERNEL.launches
+    got = cuda_align._launch_segments(modes, mask, segs, *planes, lens_k, stamps=stamps)
+    assert SEGMENTS_KERNEL.launches == before + launches
+    want = dp_scores_segments(modes, mask, segs, *planes, lens_k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    st = stamps.cpu()
+    assert bool((st[:, 0] > 0).all()) and bool((st[:, 1] >= st[:, 0]).all())
 
 
 @pytest.mark.cuda

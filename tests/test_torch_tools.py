@@ -235,3 +235,27 @@ def test_tools_run_on_cpu():
     assert all("cpu" in lines[i] for i in (0,))
     for res in (r, m):
         assert all(np.isfinite(v["rate"]) and v["rate"] > 0 for v in res["classes"].values())
+
+
+def test_score_tiles_routes_each_case_to_its_width():
+    """The tile sweep at a tiny size on the CPU: each of its launches runs
+    at the width the tool files it under (the wrappers' choice), and each
+    build's nvcc command carries its register ask beside the production
+    flags.  Timing the builds needs the card."""
+    from sarlacc_tpu_torch.tools import score_tiles
+
+    cases = score_tiles.make_cases(torch.device("cpu"), n_tune=5, n_barcodes=7)
+    widths = {name: score_tiles._width(kind, args) for name, (kind, args, _) in cases.items()}
+    assert widths == {"tune:adaptor2": 15, "barcodes12": 15, "barcodes24": 31,
+                      "tune:adaptor1": 63, "C:adaptor1": 63}
+    assert all(cells > 0 for _, _, cells in cases.values())
+    kc, kd = score_tiles.variant_kernels(5)
+    cmd = kc.command("nvcc")
+    assert [c for c in cmd if c.startswith("-D")] == [
+        "-DSCORE_MIN_BLOCKS_15=5", "-DSCORE_MIN_BLOCKS_31=5", "-DSCORE_MIN_BLOCKS_63=5"]
+    assert kd.command("nvcc") == cmd and "--fmad=false" in cmd and cmd[-1] == kc.source
+    source = open(kc.source).read()
+    for tj, blocks in score_tiles.PRODUCTION.items():
+        assert f"#define SCORE_MIN_BLOCKS_{tj} {blocks}\n" in source
+    with pytest.raises(ValueError, match="needs the card"):
+        score_tiles.measure(device="cpu")

@@ -1,15 +1,24 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-pair-shapes FILE]
 
-Phases, each printing its result on its own line:
+(``--save-pair-shapes`` keeps the arguments of each kernel-B launch shape of
+the pipeline's warm-up pass in FILE, for ``python -m
+sarlacc_tpu_torch.tools.kernel_turns``.)  Phases, each printing its result
+on its own line:
 
 1. environment: torch / CUDA / nvcc versions, card name and power limit;
 2. build: the hand-written CUDA kernels (one nvcc per source, all started
    together: the four of the main paths and the tools' two) and the native
    host library, from this checkout's sources;
-3. kernels: kernel A (adaptor direction DP) and kernel B (banded pair DP)
-   at the pipeline's shapes; kernel C (score-only DP) at the demux shape of
+3. kernels: kernel A (direction DP) at adaptor_align's stacked ends (R =
+   51 and 14), at quality_align's launch (R = 500, global) and at a
+   reference wider than its lanes' tiles (R = 150, two passes), with its
+   plan (tile, lanes a read, passes), registers, spills and occupancy
+   (theoretical, and achieved from block stamps); kernel B (banded pair DP)
+   at a 4096 x 1024 x 256 bucket and, after phase 5, at each distinct
+   (P, rows, W) the pipeline's warm-up pass launched, on its own route and
+   the block route beside it; kernel C (score-only DP) at the demux shape of
    bench.py:207-240 and at calibration's (19 926 stacked ends); kernel D
    (multi-segment score-only DP) at the demux shapes, with 24-bp barcodes
    (so each of its three tile widths runs), at tune_alignment's
@@ -24,8 +33,9 @@ Phases, each printing its result on its own line:
    with tests/golden/pipeline_mock.json;
 5. pipeline: the ~10k-read workload of bench.py (950 molecules, 8-14 reads
    each, 400-700 bp, seed 7, 12 bp UMI): one warm-up pass that also times
-   the plain-PyTorch device steps, then one timed pass with per-stage
-   seconds and the kernels' launch counts;
+   the plain-PyTorch device steps and records kernel B's launch shapes,
+   then one timed pass with per-stage seconds and the kernels' launch
+   counts;
 6. golden demux: tests/golden/barcode_demux.json through adaptor_align ->
    barcode_align -> get_barcode_thresholds on the card;
 7. demux: bench.py::bench_demux's pass (100 000 random 250-bp ends against
@@ -58,7 +68,8 @@ Every phase that drives an entry point sets all kernels' launch counts to 0
 before it and reads them after.  The second-to-last line is a JSON object
 describing the kernels: per row its CUDA-event ms, the plain version's ms,
 max |diff|, its launches over those runs (``launches``, and per path in
-``launches_by_path``), and ``bound_ms``: the larger of its compulsory bytes
+``launches_by_path``), registers and spill bytes a thread, and
+``bound_ms``: the larger of its compulsory bytes
 (each input read once, each output written once; of the cost planes only
 the slots the references select, at the rows the DP computes) over 3.35
 TB/s and its float operations over 67 TFLOP/s (the H100 SXM data sheet),
@@ -101,10 +112,11 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
 #: Float operations (adds, multiplies, maxes, compares and selects) a DP
-#: cell, counted in each kernel's cell body: A 26 (``csrc/dir_kernel.cu``:
-#: cost select, M, the horizontal candidates and choice, the two ramps, V,
-#: B, S, the direction compares, the vertical-run test, cum); B 21
-#: (``csrc/pair_kernel.cu``'s two per-cell loops: substitution select, M,
+#: cell, counted in each kernel's cell body: A 26 (``csrc/dir_kernel.cu``'s
+#: ``cell``: M, the horizontal candidates and choice, V, B, S, the direction
+#: compares, the next row's vertical test, cum, and the cost select the
+#: plain version makes); B 21 (``csrc/pair_kernel.cu``'s per-cell loops:
+#: substitution select, M,
 #: the vertical gap, mv, B and its running max, the closed horizontal gap,
 #: the masks, S and the choice); C and D 10 (``csrc/score_kernel.cu``'s
 #: ordinary cell: 6 adds, 4 maxes); the ablation kernels 17, the column-outer
@@ -211,44 +223,84 @@ def phase_build(kernels):
         f"{time.perf_counter() - t0:.2f} s")
 
 
+def timed_once(torch, fn):
+    """(result, CUDA-event ms) of one call: the plain versions run once a
+    shape, and that run both times them and gives the comparison's side."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def phase_kernels(torch, st, batch, dev, max_pairs=4096):
-    """Kernel A and kernel B against their plain versions, same inputs."""
+    """Kernel A and kernel B against their plain versions, same inputs: A at
+    adaptor_align's stacked ends (R = 51 and 14, fitting), at quality_align's
+    launch (300 reads against 500 bp of read 0, global) and at a reference
+    wider than its lanes' tiles (R = 150 global over the stacked ends: two
+    passes through the hand-off scratch); B at one 4096 x 1024 x 256 bucket
+    (the pipeline's own launch shapes follow phase 5: :func:`pair_rows`)."""
     import numpy as np
 
     from sarlacc_tpu_torch.api.align_internal import prepare_adaptor
     from sarlacc_tpu_torch.core.encode import SeqBatch
     from sarlacc_tpu_torch.ops.align import dp_align, prepare_reads
     from sarlacc_tpu_torch.ops.cuda_align import (
-        build_cost_planes, dir_kernel, encode_mask, plane_dims,
+        _launch_dirs, build_cost_planes, dir_kernel, dir_kernel_resources, dir_plan,
+        encode_mask, plane_dims,
     )
-    from sarlacc_tpu_torch.ops.cuda_msa import banded_pair_plain, pair_kernel
 
     rows_out = []
+    res = dir_kernel_resources()
+    for name, r in res.items():
+        log(f"[kernels] {name}: {r['registers']} registers a thread, {r['shared_bytes']} B "
+            f"shared a block, {r['spill_bytes']} B spilled, {r['blocks_per_sm']} blocks of "
+            f"{r['threads']} an SM: occupancy {r['occupancy']:.4f}")
 
-    # Kernel A: the stacked front+back batch of adaptor_align, L = 250.
-    front, back = batch.front_and_back(250)
-    stacked = SeqBatch.concat([front, back])
-    for name, adaptor in (("adaptor1", ADAPTOR1_BENCH), ("adaptor2", ADAPTOR2)):
-        ad = prepare_adaptor(adaptor, device=dev)
-        codes, qidx, lengths = prepare_reads(stacked, ad.tables, device=dev)
+    def a_row(name, reference, reads, local):
+        ad = prepare_adaptor(reference, device=dev)
+        codes, qidx, _ = prepare_reads(reads, ad.tables, device=dev)
         N, L = codes.shape
         l1, n_pad = plane_dims(N, L)
         planes = build_cost_planes(codes, qidx, ad.match_tab, ad.mismatch_tab, l1, n_pad)
         mask = encode_mask(ad.matched)
-        args = (ad.modes, mask, 5.0, 1.0, *planes, True)
+        args = (ad.modes, mask, 5.0, 1.0, *planes, local)
         S_k, D_k = dir_kernel(*args)
-        S_p, D_p = dp_align(*args)
+        (S_p, D_p), plain_ms = timed_once(torch, lambda: dp_align(*args))
         err = compare(torch, f"kernel A ({name})", D_k, D_p, S_k, S_p)
+        del S_p, D_p
         ms = event_ms(lambda: dir_kernel(*args), 5, dev)
-        plain_ms = event_ms(lambda: dp_align(*args), 3, dev)
-        cells = len(adaptor) * l1 * n_pad  # every row of every lane
+        tj, G, passes = dir_plan(len(reference), local, n_pad)
+        stamps = torch.zeros((n_pad * G // 128, 3), dtype=torch.int64, device=dev)
+        _launch_dirs(*args, stamps=stamps)
+        torch.cuda.synchronize()
+        occ = achieved_occupancy(torch, stamps)
+        cells = len(reference) * l1 * n_pad  # every row of every lane
         bms, by = bound(score_bytes(ad.modes, mask, l1 * n_pad, S_k, D_k),
                         cells * OPS_PER_CELL["A"])
-        log(f"[kernels] A {name}: N={N} L={L} R={len(adaptor)} l1={l1} n_pad={n_pad}: "
-            f"dirs equal, max|dS|={err}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bms:.3f} ms ({by})")
+        r = res[f"A@{tj}"]
+        log(f"[kernels] A {name}: N={N} L={L} R={len(reference)} l1={l1} n_pad={n_pad} "
+            f"{'fitting' if local else 'global'}: dirs equal, max|dS|={err}, kernel {ms:.3f} ms "
+            f"= {cells / ms / 1e6:.1f} GCUPS, plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, "
+            f"{100 * bms / ms:.1f}%); tile {tj}, {G} lanes a read, {passes} pass(es), "
+            f"{r['registers']} registers, {r['spill_bytes']} B spilled, occupancy "
+            f"{r['occupancy']:.4f} theoretical, {occ:.4f} achieved")
         rows_out.append(dict(key="A", name=name, err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bms, bound_by=by))
+                             bound_ms=bms, bound_by=by, gcups=cells / ms / 1e6, tile=tj,
+                             lanes=G, passes=passes, registers=r["registers"],
+                             spill_bytes=r["spill_bytes"], achieved_occupancy=occ))
+        del S_k, D_k, planes
+
+    # adaptor_align's (and extract_subseq's) launches: the stacked front and
+    # back ends, L = 250.
+    front, back = batch.front_and_back(250)
+    stacked = SeqBatch.concat([front, back])
+    a_row("adaptor1", ADAPTOR1_BENCH, stacked, True)
+    a_row("adaptor2", ADAPTOR2, stacked, True)
+    a_row("quality_align", batch.seq_strings()[0][50:550], batch.take(np.arange(1, 301)), False)
+    a_row("multi-pass", LONG_REF, stacked, False)
 
     # Kernel B: one pipeline-shaped bucket, rows = 1024, W = 256.
     rows, W, bw = 1024, 256, 100
@@ -278,17 +330,67 @@ def phase_kernels(torch, st, batch, dev, max_pairs=4096):
         t(ca), t(cb), t(la, np.int32), t(lb, np.int32), t(lo, np.int32),
         t(hi - lo, np.int32), 0.0, -1.0, 5.0, 1.0, rows, W,
     )
-    sk, dk = pair_kernel(*bargs)
-    sp, dp = banded_pair_plain(*bargs)
-    err = compare(torch, "kernel B", dk, dp, sk, sp)
-    ms = event_ms(lambda: pair_kernel(*bargs), 5, dev)
-    plain_ms = event_ms(lambda: banded_pair_plain(*bargs), 1, dev)
-    bms, by = bound(nbytes(*bargs[:6], sk, dk), P * rows * W * OPS_PER_CELL["B"])
-    log(f"[kernels] B pairs: P={P} rows={rows} W={W}: dirs equal, max|dscore|={err}, "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by})")
-    rows_out.append(dict(key="B", name="pairs", err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bms, bound_by=by))
+    rows_out += pair_rows(torch, {"pairs": bargs}, dev)
     return rows_out
+
+
+def record_pair_calls(torch):
+    """Wrap ``ops/msa.py``'s ``banded_pair`` so that the first call of each
+    distinct (P, rows, W) keeps a copy of its arguments.  Returns (calls,
+    undo)."""
+    import sarlacc_tpu_torch.ops.msa as msa
+
+    orig = msa.banded_pair
+    calls = {}
+
+    def recording(*args):
+        key = f"pipeline:P{int(args[0].shape[0])}xR{int(args[10])}xW{int(args[11])}"
+        if key not in calls:
+            calls[key] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        return orig(*args)
+
+    msa.banded_pair = recording
+    return calls, lambda: setattr(msa, "banded_pair", orig)
+
+
+def pair_rows(torch, cases, dev):
+    """Kernel B at each ``name -> banded_pair arguments`` against its plain
+    version (run once a shape), on its own route, and the block route at the
+    same shape (the previous design, kept for bands over 512) against it."""
+    from sarlacc_tpu_torch.ops.cuda_msa import (
+        _launch_pair, banded_pair_plain, pair_kernel, pair_kernel_resources, pair_route,
+    )
+
+    res = pair_kernel_resources(sorted({a[-1] for a in cases.values()}))
+    out = []
+    for name, bargs in cases.items():
+        P, rows, W = int(bargs[0].shape[0]), bargs[-2], bargs[-1]
+        route = pair_route(W)
+        sk, dk = pair_kernel(*bargs)
+        (sp, dp), plain_ms = timed_once(torch, lambda: banded_pair_plain(*bargs))
+        err = compare(torch, f"kernel B ({name})", dk, dp, sk, sp)
+        del sp, dp
+        ms = event_ms(lambda: pair_kernel(*bargs), 5, dev)
+        block_ms = None
+        if route == "warp":
+            s_b, d_b = _launch_pair(*bargs, route="block")
+            compare(torch, f"kernel B block route ({name})", d_b, dk, s_b, sk)
+            del s_b, d_b
+            block_ms = event_ms(lambda: _launch_pair(*bargs, route="block"), 5, dev)
+        cells = P * rows * W
+        bms, by = bound(nbytes(*bargs[:6], sk, dk), cells * OPS_PER_CELL["B"])
+        r = res[f"B:{route}@{W}"]
+        log(f"[kernels] B {name}: P={P} rows={rows} W={W}: dirs equal, max|dscore|={err}, "
+            f"kernel {ms:.3f} ms = {cells / ms / 1e6:.1f} GCUPS ({route} route"
+            + (f"; block route {block_ms:.3f} ms" if block_ms is not None else "")
+            + f"), plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, {100 * bms / ms:.1f}%); "
+            f"{r['registers']} registers, {r['spill_bytes']} B spilled, {r['blocks_per_sm']} "
+            f"blocks of {r['threads']} an SM")
+        out.append(dict(key="B", name=name, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                        bound_by=by, gcups=cells / ms / 1e6, route=route, block_ms=block_ms,
+                        registers=r["registers"], spill_bytes=r["spill_bytes"]))
+        del sk, dk
+    return out
 
 
 def random_reads(n, length, seed):
@@ -362,7 +464,8 @@ def phase_score_kernels(torch, st, demux, bench, dev):
             f"registers, occupancy {r['occupancy']:.4f} theoretical, {occ:.4f} achieved")
         rows_out.append(dict(key=key, name=name, err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bms, bound_by=by, gcups=cells / ms / 1e6, tile=tj,
-                             registers=r["registers"], achieved_occupancy=occ))
+                             registers=r["registers"], spill_bytes=r["spill_bytes"],
+                             achieved_occupancy=occ))
 
     def c_row(name, ad, prepared):  # fitting mode, as the entry points run it
         planes, lengths, N = prepared.planes(), prepared.lengths, prepared.n
@@ -599,6 +702,10 @@ def step_report(totals) -> str:
 
 
 def phase_pipeline(torch, st, batch, kernels, required, dev):
+    """The warm-up pass (step timers; it also records the arguments of each
+    distinct kernel-B launch shape), then the timed pass.  Returns (launch
+    counts, the aligned frame, {shape: banded_pair arguments})."""
+    pair_calls, unrecord = record_pair_calls(torch)
     totals, restore = timed_steps(torch)
     try:
         t0 = time.perf_counter()
@@ -606,8 +713,9 @@ def phase_pipeline(torch, st, batch, kernels, required, dev):
         warm_s = time.perf_counter() - t0
     finally:
         restore()
+        unrecord()
     log(f"[pipeline] warm-up pass {warm_s:.3f} s; synchronized step times: "
-        f"{step_report(totals)}")
+        f"{step_report(totals)}; kernel-B shapes {sorted(pair_calls)}")
 
     reset(kernels)
     torch.cuda.reset_peak_memory_stats()
@@ -631,7 +739,7 @@ def phase_pipeline(torch, st, batch, kernels, required, dev):
         f"consensus reads: {total:.3f} s = {len(batch) / total:.1f} reads/s; stages "
         + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
         + f"; peak allocated {peak:.2f} GiB; launches {counts}")
-    return counts, aligned
+    return counts, aligned, pair_calls
 
 
 def phase_golden_demux(torch, st, kernels, kernel_d, dev):
@@ -989,8 +1097,16 @@ def phase_tools(torch, dev):
     return checks, counts, results
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    save_pair_shapes = None
+    if argv[:1] == ["--save-pair-shapes"] and len(argv) == 2:
+        save_pair_shapes = os.path.abspath(argv[1])
+    elif argv:
+        print("usage: python3 chip_smoke.py [--save-pair-shapes FILE]", file=sys.stderr)
+        return 2
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available (torch.cuda.is_available() "
@@ -1022,8 +1138,13 @@ def main() -> int:
     krows += phase_score_kernels(torch, st, demux, bench, dev)
     # Each path runs with every count at 0 and reports all four kernels.
     by_path = {"golden": phase_golden(torch, st, kernels, (DIR_KERNEL, PAIR_KERNEL), dev)}
-    by_path["pipeline"], aligned = phase_pipeline(
+    by_path["pipeline"], aligned, pair_calls = phase_pipeline(
         torch, st, bench, kernels, (DIR_KERNEL, PAIR_KERNEL), dev)
+    krows += pair_rows(torch, pair_calls, dev)  # kernel B at the pipeline's own shapes
+    if save_pair_shapes:
+        torch.save(pair_calls, save_pair_shapes)
+        log(f"[pipeline] kernel-B launch arguments saved to {save_pair_shapes}")
+    del pair_calls
     by_path["golden_demux"] = phase_golden_demux(torch, st, kernels, SEGMENTS_KERNEL, dev)
     by_path["demux"] = phase_demux(torch, st, demux, kernels, dev)
     by_path["calibration"] = phase_calibration(torch, st, bench, aligned, kernels, dev)
@@ -1048,7 +1169,8 @@ def main() -> int:
     for r in krows:
         kern, repl = replaces[r["key"]]
         launches, each = path_launches(kern.symbol)
-        extra = {k: r[k] for k in ("gcups", "tile", "registers", "achieved_occupancy") if k in r}
+        extra = {k: r[k] for k in ("gcups", "tile", "lanes", "passes", "route", "block_ms",
+                                   "registers", "spill_bytes", "achieved_occupancy") if k in r}
         report.append({
             "name": f"{kern.symbol.removeprefix('sarlacc_')}[{r['name']}]",
             "route": "cuda",

@@ -6,29 +6,48 @@
 // bits are bit-identical.
 //
 // Band coordinates: DP cell (i, j) sits at k = j - i - lo, 0 <= k <= kmax.
-// One block per pair walks the rows in order; the band of W cells is spread
-// over the block's threads, IT consecutive cells each.  Per row:
-//   1. each thread reads the previous row's S and V (shared memory) at k and
-//      k+1, forms the diagonal M, the vertical Vn and B = (mv - go) + k*ge,
-//      and a running max of B over its own cells;
-//   2. a block-wide exclusive max-scan of the per-thread maxima (warp
-//      shuffles, then one warp over the warp totals) completes the
-//      horizontal cummax (pallas_msa.py:171-179);
-//   3. each thread closes Hn = cum[k-1] - (k-1)*ge, resolves the choice
-//      (diagonal, then horizontal, then vertical, with >=) and the extend
-//      bits, and writes its W/threads direction bytes for this row.
-// Max is exact, so the scan order does not change any bit.
+// A pair walks the rows in order, the band of W cells spread over its
+// threads, IT consecutive cells each.  Two routes, chosen by W in the
+// wrapper (ops/cuda_msa.py::pair_route):
 //
-// What bounds it: the row loop is sequential, so a pair's latency is rows x
-// (three block barriers + a scan); throughput comes from many pairs in
-// flight (one block each, 256 threads at W >= 256, several blocks per SM).
-// Direction bytes, rows x W per pair, are the only large traffic; each row
-// is written as one contiguous W-byte run in the [rows, P, W] layout, so
-// the stores coalesce.  The previous row lives in shared memory, never in
-// device memory.
+// Warp route (W 32-512, every band the pipeline's buckets give): one warp
+// a pair, IT = W / 32 cells a lane in registers, four pairs a block and no
+// block barrier.  Per row a lane
+//   1. takes the previous row's S and V at k+1 from its own registers, or
+//      for its last cell from lane + 1 (__shfl_down_sync), forms the
+//      diagonal M, the vertical Vn and B = (mv - go) + k*ge, and a running
+//      max of B over its cells;
+//   2. completes the horizontal cummax (pallas_msa.py:171-179) with a
+//      5-step warp scan of the lane maxima (exclusive by one more shuffle);
+//   3. closes Hn = cum[k-1] - (k-1)*ge, resolves the choice (diagonal, then
+//      horizontal, then vertical, with >=) and the horizontal-extend bit,
+//      whose H and mv at k-1 come from lane - 1 (__shfl_up_sync) for its
+//      first cell, and stores its IT direction bytes as one vector store.
+//   Sequence B's codes ride the band in a register window: a row later
+//   cell k reads what cell k+1 read, so the window shifts by one cell a row
+//   (its last cell from lane + 1) and only lane 31 loads a new code.  A's
+//   codes come 32 rows at a time, one a lane, and reach the warp by a
+//   broadcast shuffle.
+//
+// Block route (W 1024-4096): one block a pair, 256 threads; the previous
+// row's S and V, this row's mv and H and the scan's warp maxima live in
+// shared memory, with four block barriers a row.
+//
+// What bounds it: the ALU and the row's shuffle chain on the warp route.
+// Per cell ~21 counted float operations (substitution select, M, the
+// vertical gap, mv, B and its running max, the closed horizontal gap, the
+// masks, S and the choice) against one direction byte; a row's latency is
+// its chain of about a dozen shuffles (five of them the dependent scan),
+// so throughput comes from many pairs (warps) in flight: about 480 GCUPS
+// at W 256 and 4 blocks an SM, less at W 512 (202 registers, 2 blocks) and
+// at a few hundred pairs.  Direction bytes, rows x W per pair, are the only
+// large traffic: each row is one contiguous W-byte run in the [rows, P, W]
+// layout, written as one 1-16-byte store a lane.  No DP state goes to
+// device memory on either route.
 //
 // Exactness: compile with --fmad=false so (mv - go) + k*ge,
-// -(go + (j-1)*ge) and cum - (k-1)*ge are not contracted into FMAs.
+// -(go + (j-1)*ge) and cum - (k-1)*ge are not contracted into FMAs.  Max is
+// exact, so the scan order does not change any bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,6 +56,7 @@ namespace {
 
 constexpr float NEG = -1.0e9f;
 
+// The block route: one block per pair, W / IT threads of IT band cells.
 template <int IT>
 __global__ void pair_kernel(
     const int8_t* __restrict__ codes_a, int la_w,
@@ -168,6 +188,171 @@ __global__ void pair_kernel(
     if (t == 0) scores[p] = (kfin >= 0 && kfin < W) ? sS[kfin] : NEG;
 }
 
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARP_BLOCK = 128;  // four pairs a block on the warp route
+
+// The warp route: one warp per pair, IT = W / 32 band cells a lane.
+template <int IT>
+__global__ void __launch_bounds__(WARP_BLOCK) pair_warp_kernel(
+    const int8_t* __restrict__ codes_a, int la_w,
+    const int8_t* __restrict__ codes_b, int lb_w,
+    const int32_t* __restrict__ lens_a, const int32_t* __restrict__ lens_b,
+    const int32_t* __restrict__ lo_p, const int32_t* __restrict__ kmax_p,
+    int P, int rows, float mt, float mm, float go, float ge,
+    int8_t* __restrict__ dirs, float* __restrict__ scores)
+{
+    constexpr int W = 32 * IT;
+    constexpr int NW = (IT + 3) / 4;  // 32-bit words of a lane's direction bytes
+    const int lane = threadIdx.x & 31;
+    const int p = blockIdx.x * (WARP_BLOCK / 32) + (threadIdx.x >> 5);
+    if (p >= P) return;  // a whole warp: no barrier follows
+    const int k0 = lane * IT;
+
+    const int la = lens_a[p];
+    const int lb = lens_b[p];
+    const int lo = lo_p[p];
+    const int kmax = kmax_p[p];
+    const int8_t* a = codes_a + (size_t)p * la_w;
+    const int8_t* b = codes_b + (size_t)p * lb_w;
+
+    // Row 0: S = 0 at j == 0, -(go + (j-1)*ge) inside [1, lb] and the band.
+    float S[IT], V[IT];
+    int bw[IT];  // B's code at this row's cell, -1 outside [1, lb]
+#pragma unroll
+    for (int u = 0; u < IT; ++u) {
+        const int k = k0 + u;
+        const int j0 = lo + k;
+        float s = NEG;
+        if (j0 == 0) s = 0.0f;
+        else if (j0 >= 1 && j0 <= lb && k <= kmax) s = -(go + ((float)j0 - 1.0f) * ge);
+        S[u] = s;
+        V[u] = NEG;
+        const int j = 1 + lo + k;
+        bw[u] = (j >= 1 && j <= lb) ? (int)b[j - 1] : -1;
+    }
+    int areg = 5;  // A's code at row (i - 1) & ~31 + lane
+
+    for (int i = 1; i <= rows; ++i) {
+        if (((i - 1) & 31) == 0) {
+            const int r = i - 1 + lane;
+            areg = r < la_w ? (int)a[r] : 5;
+        }
+        const int ai = __shfl_sync(FULL, areg, (i - 1) & 31);
+        const bool alive = i <= la;
+        float s_nb = __shfl_down_sync(FULL, S[0], 1);  // k0 + IT, one row up
+        float v_nb = __shfl_down_sync(FULL, V[0], 1);
+        if (lane == 31) s_nb = v_nb = NEG;  // k + 1 == W: outside the band
+
+        float M[IT], Vn[IT], mv[IT], run[IT];
+        bool vext[IT];
+        float tmax = NEG;
+#pragma unroll
+        for (int u = 0; u < IT; ++u) {
+            const int k = k0 + u;
+            const float sub = bw[u] < 0 ? NEG : (ai == bw[u] ? mt : mm);
+            M[u] = S[u] + sub;
+            const float s_up = u + 1 < IT ? S[u + 1] : s_nb;
+            const float v_up = u + 1 < IT ? V[u + 1] : v_nb;
+            const float open_v = s_up - go;
+            const float ext_v = v_up - ge;
+            Vn[u] = fmaxf(open_v, ext_v);
+            vext[u] = ext_v >= open_v;
+            mv[u] = fmaxf(M[u], Vn[u]);
+            tmax = fmaxf(tmax, (mv[u] - go) + (float)k * ge);
+            run[u] = tmax;
+        }
+
+        // Warp-wide exclusive max-scan of the lane maxima.
+        float x = tmax;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const float y = __shfl_up_sync(FULL, x, off);
+            if (lane >= off) x = fmaxf(x, y);
+        }
+        float excl = __shfl_up_sync(FULL, x, 1);
+        if (lane == 0) excl = NEG;
+
+        float h[IT];
+        uint32_t wd[NW];
+#pragma unroll
+        for (int w = 0; w < NW; ++w) wd[w] = 0;
+        const int jb = i + lo + k0;
+#pragma unroll
+        for (int u = 0; u < IT; ++u) {
+            const int k = k0 + u;
+            const int j = jb + u;
+            const bool valid = j >= 0 && j <= lb && k <= kmax;
+            const float cprev = (u == 0) ? excl : fmaxf(excl, run[u - 1]);
+            float hh = NEG;
+            if (k > 0 && valid) hh = cprev - ((float)k - 1.0f) * ge;
+            const float m = valid ? M[u] : NEG;
+            const float v = valid ? Vn[u] : NEG;
+            const float sn = fmaxf(m, fmaxf(hh, v));
+            const int choice = (m >= sn) ? 0 : ((hh >= sn) ? 1 : 2);
+            h[u] = hh;
+            M[u] = sn;  // this row's S
+            Vn[u] = v;
+            wd[u >> 2] |= (uint32_t)(choice | ((int)vext[u] << 3)) << (8 * (u & 3));
+        }
+        float h_nb = __shfl_up_sync(FULL, h[IT - 1], 1);  // k0 - 1, this row
+        float mv_nb = __shfl_up_sync(FULL, mv[IT - 1], 1);
+        if (lane == 0) h_nb = mv_nb = NEG;
+#pragma unroll
+        for (int u = 0; u < IT; ++u) {
+            const float h_prev = u == 0 ? h_nb : h[u - 1];
+            const float mv_prev = u == 0 ? mv_nb : mv[u - 1];
+            const bool hext = (h_prev - ge) >= (mv_prev - go);
+            wd[u >> 2] |= (uint32_t)hext << (8 * (u & 3) + 2);
+        }
+
+        int8_t* dst = dirs + ((size_t)(i - 1) * P + p) * W + k0;
+        if constexpr (IT == 1) *dst = (int8_t)wd[0];
+        else if constexpr (IT == 2) *reinterpret_cast<uint16_t*>(dst) = (uint16_t)wd[0];
+        else if constexpr (IT == 4) *reinterpret_cast<uint32_t*>(dst) = wd[0];
+        else if constexpr (IT == 8) *reinterpret_cast<uint2*>(dst) = make_uint2(wd[0], wd[1]);
+        else *reinterpret_cast<uint4*>(dst) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+
+        if (alive) {
+#pragma unroll
+            for (int u = 0; u < IT; ++u) {
+                S[u] = M[u];
+                V[u] = Vn[u];
+            }
+        }
+        // Slide B's window: row i + 1's cell k reads row i's cell k + 1.
+        const int b_nb = __shfl_down_sync(FULL, bw[0], 1);
+#pragma unroll
+        for (int u = 0; u + 1 < IT; ++u) bw[u] = bw[u + 1];
+        bw[IT - 1] = b_nb;
+        if (lane == 31) {
+            const int j = i + 1 + lo + W - 1;
+            bw[IT - 1] = (j >= 1 && j <= lb) ? (int)b[j - 1] : -1;
+        }
+    }
+
+    const int kfin = lb - la - lo;
+    if (kfin < 0 || kfin >= W) {
+        if (lane == 0) scores[p] = NEG;
+    } else {
+#pragma unroll
+        for (int u = 0; u < IT; ++u)
+            if (k0 + u == kfin) scores[p] = S[u];
+    }
+}
+
+template <int IT>
+int launch_warp(const int8_t* codes_a, int la_w, const int8_t* codes_b, int lb_w,
+                const int32_t* lens_a, const int32_t* lens_b, const int32_t* lo,
+                const int32_t* kmax, int P, int rows, float mt, float mm, float go,
+                float ge, int8_t* dirs, float* scores, cudaStream_t stream)
+{
+    const int blocks = (P + WARP_BLOCK / 32 - 1) / (WARP_BLOCK / 32);
+    pair_warp_kernel<IT><<<blocks, WARP_BLOCK, 0, stream>>>(
+        codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, mt, mm, go, ge,
+        dirs, scores);
+    return (int)cudaGetLastError();
+}
+
 template <int IT>
 int launch(const int8_t* codes_a, int la_w, const int8_t* codes_b, int lb_w,
            const int32_t* lens_a, const int32_t* lens_b, const int32_t* lo,
@@ -187,28 +372,93 @@ int launch(const int8_t* codes_a, int la_w, const int8_t* codes_b, int lb_w,
     return (int)cudaGetLastError();
 }
 
+// The kernel of a route (0 warp, 1 block) at band width W, or null; the
+// block route's threads at W.
+const void* kernel_for(int route, int W, int* threads)
+{
+    if (W < 32 || W > 4096 || (W & (W - 1))) return nullptr;
+    if (route == 0) {
+        *threads = WARP_BLOCK;
+        switch (W) {
+        case 32: return (const void*)pair_warp_kernel<1>;
+        case 64: return (const void*)pair_warp_kernel<2>;
+        case 128: return (const void*)pair_warp_kernel<4>;
+        case 256: return (const void*)pair_warp_kernel<8>;
+        case 512: return (const void*)pair_warp_kernel<16>;
+        default: return nullptr;
+        }
+    }
+    if (route != 1) return nullptr;
+    *threads = W < 256 ? W : 256;
+    switch (W / *threads) {
+    case 1: return (const void*)pair_kernel<1>;
+    case 2: return (const void*)pair_kernel<2>;
+    case 4: return (const void*)pair_kernel<4>;
+    case 8: return (const void*)pair_kernel<8>;
+    case 16: return (const void*)pair_kernel<16>;
+    default: return nullptr;
+    }
+}
+
 }  // namespace
 
-// W must be a power of two from 32 to 4096; threads = min(W, 256), so each
-// thread keeps at most 16 band cells (IT = 16 takes ~170 registers a thread,
-// which 256 threads fit in one SM's register file and 512 do not).
+// route 0 (warp): W a power of two from 32 to 512, one warp a pair.
+// route 1 (block): W a power of two from 32 to 4096; threads = min(W, 256),
+// so each thread keeps at most 16 band cells (IT = 16 takes ~170 registers
+// a thread, which 256 threads fit in one SM's register file and 512 do
+// not).  Anything else is refused (cudaErrorInvalidValue).
 extern "C" int sarlacc_pair_kernel(
     const int8_t* codes_a, int la_w, const int8_t* codes_b, int lb_w,
     const int32_t* lens_a, const int32_t* lens_b, const int32_t* lo,
     const int32_t* kmax, int P, int rows, int W, float mt, float mm, float go,
-    float ge, int8_t* dirs, float* scores, void* stream)
+    float ge, int route, int8_t* dirs, float* scores, void* stream)
 {
+    int threads = 0;
+    if (!kernel_for(route, W, &threads)) return (int)cudaErrorInvalidValue;
     if (P <= 0) return 0;
-    if (W < 32 || W > 4096 || (W & (W - 1))) return (int)cudaErrorInvalidValue;
-    const int threads = W < 256 ? W : 256;
-    const int it = W / threads;
     cudaStream_t s = (cudaStream_t)stream;
-    switch (it) {
+    if (route == 0) {
+        switch (W) {
+            case 32: return launch_warp<1>(codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, mt, mm, go, ge, dirs, scores, s);
+            case 64: return launch_warp<2>(codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, mt, mm, go, ge, dirs, scores, s);
+            case 128: return launch_warp<4>(codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, mt, mm, go, ge, dirs, scores, s);
+            case 256: return launch_warp<8>(codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, mt, mm, go, ge, dirs, scores, s);
+            default: return launch_warp<16>(codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, mt, mm, go, ge, dirs, scores, s);
+        }
+    }
+    switch (W / threads) {
         case 1: return launch<1>(codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, W, mt, mm, go, ge, dirs, scores, s);
         case 2: return launch<2>(codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, W, mt, mm, go, ge, dirs, scores, s);
         case 4: return launch<4>(codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, W, mt, mm, go, ge, dirs, scores, s);
         case 8: return launch<8>(codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, W, mt, mm, go, ge, dirs, scores, s);
-        case 16: return launch<16>(codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, W, mt, mm, go, ge, dirs, scores, s);
-        default: return (int)cudaErrorInvalidValue;
+        default: return launch<16>(codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, W, mt, mm, go, ge, dirs, scores, s);
     }
+}
+
+// Resources of a route's kernel at band width W: out[0..4] = registers a
+// thread, static shared bytes a block, local (spill) bytes a thread,
+// resident blocks an SM (the block route with its dynamic shared memory),
+// threads a block.
+extern "C" int sarlacc_pair_attrs(int route, int W, int* out)
+{
+    int threads = 0;
+    const void* fn = kernel_for(route, W, &threads);
+    if (!fn) return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes a;
+    cudaError_t err = cudaFuncGetAttributes(&a, fn);
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem = route == 1 ? (4 * (size_t)W + 32) * sizeof(float) : 0;
+    if (smem > 48 * 1024) {
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = a.numRegs;
+    out[1] = (int)a.sharedSizeBytes;
+    out[2] = (int)a.localSizeBytes;
+    out[3] = blocks;
+    out[4] = threads;
+    return 0;
 }

@@ -23,7 +23,8 @@ import subprocess
 import threading
 
 __all__ = [
-    "BUILD_DIR", "CSRC_DIR", "build_library", "check_tensor", "CudaKernel", "nvcc_path",
+    "BUILD_DIR", "CSRC_DIR", "build_library", "check_tensor", "CudaKernel", "kernel_resources",
+    "nvcc_path",
 ]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -131,3 +132,20 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
         self.launches += 1
+
+
+def kernel_resources(fn, *args) -> dict:
+    """One kernel's compiled resources from an attributes entry point ``fn``
+    (``fn(*args, int out[5])``: registers a thread, static shared bytes a
+    block, spill bytes a thread, resident blocks an SM, threads a block),
+    with the theoretical occupancy (resident warps over the SM's 64)."""
+    buf = (ctypes.c_int * 5)()
+    rc = fn(*args, ctypes.cast(buf, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"kernel attributes {args} failed: CUDA error {rc}")
+    regs, smem, spill, blocks, threads = list(buf)
+    return {
+        "registers": regs, "shared_bytes": smem, "spill_bytes": spill,
+        "blocks_per_sm": blocks, "threads": threads,
+        "occupancy": blocks * threads / 32 / 64,
+    }

@@ -9,7 +9,10 @@ costs for all four degeneracy modes; one plane build serves every kernel.
   ``csrc/dir_kernel.cu``; plain :func:`..ops.align.dp_align`) and returns
   int16 run-length direction planes [R, l1, n_pad] that
   :func:`..ops.backtrack.qmap_walk` and :func:`..ops.backtrack.string_walk`
-  consume.
+  consume.  Kernel A runs each read in G lanes over column tiles of
+  :data:`DIR_TILES` width, in a wavefront (:func:`dir_plan` picks both);
+  a reference with more tiles than lanes takes several passes through one
+  [3, l1, n_pad] hand-off scratch.
 * :func:`fit_scores_from_planes` scores a batch against one reference
   (kernel C, ``csrc/score_kernel.cu``; plain :func:`..ops.align.dp_scores`).
 * :func:`fit_scores_segments` scores a batch against many
@@ -37,17 +40,20 @@ import ctypes
 import numpy as np
 import torch
 
-from ..native.build import CudaKernel, check_tensor
+from ..native.build import CudaKernel, check_tensor, kernel_resources
 from .align import dp_align, dp_scores, dp_scores_segments
 
 __all__ = [
     "DIR_KERNEL",
+    "DIR_TILES",
     "SCORE_KERNEL",
     "SCORE_TILES",
     "SEGMENTS_KERNEL",
     "build_cost_planes",
     "cost_slots",
     "dir_kernel",
+    "dir_kernel_resources",
+    "dir_plan",
     "encode_mask",
     "fit_dirs",
     "fit_scores",
@@ -67,10 +73,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 #: ``csrc/dir_kernel.cu``: replaces ``sarlacc_tpu/ops/pallas_align.py::_dir_kernel``.
+#: As for :data:`SCORE_KERNEL`, the last pointer before the stream is the
+#: per-block timer stamps, for measurement only (set by :func:`_launch_dirs`).
 DIR_KERNEL = CudaKernel(
     "dir_kernel.cu",
     "sarlacc_dir_kernel",
-    [_P, _P, _I, _F, _F, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    [_P, _P, _I, _F, _F, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 )
 
 #: ``csrc/score_kernel.cu``: replaces ``sarlacc_tpu/ops/pallas_align.py::_kernel``.
@@ -93,6 +101,20 @@ SEGMENTS_KERNEL = CudaKernel(
 #: The tile widths kernels C and D are compiled for (``TJ`` in
 #: ``csrc/score_kernel.cu``; the entry points refuse any other value).
 SCORE_TILES = (15, 31, 63)
+
+#: The tile widths kernel A is compiled for (``TJ`` in ``csrc/dir_kernel.cu``).
+DIR_TILES = (7, 15, 31)
+
+#: Threads a kernel-A launch aims for: 8 warps on each of the H100's 132
+#: SMs.  More lanes a read cost more than they fill: a warp's direction
+#: store covers 32 / G reads of one row, a full 32-byte sector at G = 2 and
+#: less beyond, and at 19 968 reads 2 lanes beat 4 (tools/dir_tiles.py).
+DIR_FILL = 132 * 8 * 32
+
+#: Fewest ordinary columns a kernel-A lane keeps when the plan doubles the
+#: lanes of a read: below it the hand-off and the row's cost loads outweigh
+#: the cells.
+DIR_MIN_COLS = 6
 
 #: Most segments one kernel-D launch takes (the grid's y extent); a call
 #: with more takes several launches.
@@ -145,11 +167,38 @@ def _gap_pair(gap_open, gap_ext) -> tuple[float, float]:
     return float(np.float32(gap_open) + np.float32(gap_ext)), float(np.float32(gap_ext))
 
 
+def dir_plan(rlen: int, local: bool, n_pad: int) -> tuple[int, int, int]:
+    """Kernel A's launch shape for a reference of ``rlen`` columns over
+    ``n_pad`` reads: (tile width, lanes a read G, passes).
+
+    G doubles (to at most 32) while the launch has fewer than
+    :data:`DIR_FILL` threads and each lane would keep at least
+    :data:`DIR_MIN_COLS` ordinary columns; the tile is the narrowest of
+    :data:`DIR_TILES` that holds a lane's share, and a reference wider than
+    G tiles of the widest takes several passes."""
+    rn = _ordinary(rlen, local)
+    G = 1
+    while G < 32 and n_pad * G < DIR_FILL and -(-rn // (2 * G)) >= DIR_MIN_COLS:
+        G *= 2
+    share = -(-rn // G)
+    tj = next((t for t in DIR_TILES if share <= t), DIR_TILES[-1])
+    return tj, G, max(1, -(-rn // (tj * G)))
+
+
 def dir_kernel(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, local=True):
     """Launch kernel A; same contract as :func:`..ops.align.dp_align`.
 
     Returns (S f32 [l1, n_pad], dirs int16 [R, l1, n_pad]) on the card.
     """
+    return _launch_dirs(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, local)
+
+
+def _launch_dirs(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, local=True,
+                 stamps=None, kernel=DIR_KERNEL, plan=None):
+    """:func:`dir_kernel`, with what only measurement sets: ``stamps``,
+    int64 [n_pad * G / 128, 3] on the card, filled per block as for
+    :func:`_launch_score`; another build of the source (``kernel``); a
+    forced ``(tile width, G, passes)`` (``plan``)."""
     dev = codes_k.device
     l1, n_pad = codes_k.shape
     R = int(modes.shape[0])
@@ -158,20 +207,30 @@ def dir_kernel(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, local=Tru
     check_tensor(costm, "costm", torch.float32, (4, l1, n_pad))
     check_tensor(costmm, "costmm", torch.float32, (4, l1, n_pad))
     check_tensor(codes_k, "codes_k", torch.int32, (l1, n_pad))
+    tj, G, passes = dir_plan(R, bool(local), n_pad) if plan is None else plan
+    if stamps is not None:
+        check_tensor(stamps, "stamps", torch.int64, (n_pad * G // 128, 3))
     S = torch.empty((l1, n_pad), dtype=torch.float32, device=dev)
-    H = torch.empty_like(S)
-    was_left = torch.empty((l1, n_pad), dtype=torch.uint8, device=dev)
-    ljp = torch.empty((l1, n_pad), dtype=torch.int32, device=dev)
     dirs = torch.empty((R, l1, n_pad), dtype=torch.int16, device=dev)
+    scratch = None
+    if passes > 1:
+        scratch = torch.empty((3, l1, n_pad), dtype=torch.float32, device=dev)
     go, ge = _gap_pair(gap_open, gap_ext)
-    DIR_KERNEL.launch(
+    kernel.launch(
         modes.data_ptr(), mask.data_ptr(), R, go, ge,
         int(bool(local)), costm.data_ptr(), costmm.data_ptr(),
-        codes_k.data_ptr(), l1, n_pad, S.data_ptr(), H.data_ptr(),
-        was_left.data_ptr(), ljp.data_ptr(), dirs.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        codes_k.data_ptr(), l1, n_pad, tj, G, passes, _ptr(scratch), S.data_ptr(),
+        dirs.data_ptr(), _ptr(stamps), torch.cuda.current_stream(dev).cuda_stream,
     )
     return S, dirs
+
+
+def dir_kernel_resources(kernel=DIR_KERNEL) -> dict:
+    """Kernel A as compiled at each tile width, keyed ``"A@15"`` and so
+    on, with the keys of :func:`score_kernel_resources`.  ``kernel``: a
+    build of ``csrc/dir_kernel.cu`` (another one only for measurement)."""
+    fn = kernel.function("sarlacc_dir_attrs", [_I, _P])
+    return {f"A@{tj}": kernel_resources(fn, tj) for tj in DIR_TILES}
 
 
 def fit_dirs(
@@ -367,20 +426,8 @@ def score_kernel_resources(kernel=SCORE_KERNEL) -> dict:
     the SM's 64).  Keyed ``"C@63"``, ``"D@15"`` and so on.  ``kernel``: a
     build of ``csrc/score_kernel.cu`` (another one only for measurement)."""
     fn = kernel.function("sarlacc_score_attrs", [_I, _I, _P])
-    res = {}
-    for which, name in ((0, "C"), (1, "D")):
-        for tj in SCORE_TILES:
-            buf = (ctypes.c_int * 5)()
-            rc = fn(which, tj, ctypes.cast(buf, ctypes.c_void_p))
-            if rc != 0:
-                raise RuntimeError(f"sarlacc_score_attrs({which}, {tj}) failed: CUDA error {rc}")
-            regs, smem, spill, blocks, threads = list(buf)
-            res[f"{name}@{tj}"] = {
-                "registers": regs, "shared_bytes": smem, "spill_bytes": spill,
-                "blocks_per_sm": blocks, "threads": threads,
-                "occupancy": blocks * threads / 32 / 64,
-            }
-    return res
+    return {f"{name}@{tj}": kernel_resources(fn, which, tj)
+            for which, name in ((0, "C"), (1, "D")) for tj in SCORE_TILES}
 
 
 def _check_planes(planes, l1: int, n_pad: int):

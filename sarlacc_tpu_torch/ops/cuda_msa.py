@@ -12,6 +12,11 @@ bit 2 a horizontal extend, bit 3 a vertical extend (a tie extends).
 
 Sequence A contributes code 5 past its stored width; B cells outside
 ``[1, lb]`` score ``NEG``, so pads never match.
+
+The kernel has two routes, chosen by band width (:func:`pair_route`): one
+warp a pair with the band in registers up to :data:`WARP_MAX_WIDTH` (every
+bucket of the pipeline), one block a pair above it.  A build or launch
+error of either raises.
 """
 
 from __future__ import annotations
@@ -21,9 +26,12 @@ import ctypes
 import numpy as np
 import torch
 
-from ..native.build import CudaKernel, check_tensor
+from ..native.build import CudaKernel, check_tensor, kernel_resources
 
-__all__ = ["NEG", "PAIR_KERNEL", "banded_pair", "banded_pair_plain", "pair_kernel"]
+__all__ = [
+    "MAX_WIDTH", "NEG", "PAIR_KERNEL", "PAIR_ROUTES", "WARP_MAX_WIDTH", "banded_pair",
+    "banded_pair_plain", "pair_kernel", "pair_kernel_resources", "pair_route",
+]
 
 NEG = -1.0e9  # integer-ish scores stay far from this
 
@@ -35,11 +43,23 @@ _F = ctypes.c_float
 PAIR_KERNEL = CudaKernel(
     "pair_kernel.cu",
     "sarlacc_pair_kernel",
-    [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P],
+    [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P],
 )
 
 #: Widest band the kernel takes: 256 threads of at most 16 band cells each.
 MAX_WIDTH = 4096
+
+#: Widest band of the warp route: 32 lanes of at most 16 band cells each.
+WARP_MAX_WIDTH = 512
+
+#: The routes, in the kernel's numbering.
+PAIR_ROUTES = ("warp", "block")
+
+
+def pair_route(width: int) -> str:
+    """Kernel B's route for a band of ``width`` cells: one warp a pair up to
+    :data:`WARP_MAX_WIDTH`, one block a pair above."""
+    return "warp" if width <= WARP_MAX_WIDTH else "block"
 
 
 def _shift_up(x: torch.Tensor) -> torch.Tensor:
@@ -142,12 +162,27 @@ def pair_kernel(
     match, mismatch, gap_open, gap_ext, rows: int, width: int,
 ):
     """Launch kernel B; same contract as :func:`banded_pair_plain`."""
+    return _launch_pair(
+        codes_a, codes_b, lens_a, lens_b, lo, kmax,
+        match, mismatch, gap_open, gap_ext, rows, width,
+    )
+
+
+def _launch_pair(
+    codes_a, codes_b, lens_a, lens_b, lo, kmax,
+    match, mismatch, gap_open, gap_ext, rows: int, width: int, route=None,
+):
+    """:func:`pair_kernel`, with a route forced (``"warp"`` or ``"block"``),
+    which only measurement sets."""
     P, LA = codes_a.shape
     LB = codes_b.shape[1]
     if not 32 <= width <= MAX_WIDTH or width & (width - 1):
         raise ValueError(
             f"band width {width}: kernel B takes a power of two from 32 to {MAX_WIDTH}"
         )
+    route = pair_route(width) if route is None else route
+    if route not in PAIR_ROUTES or (route == "warp" and width > WARP_MAX_WIDTH):
+        raise ValueError(f"kernel B has no {route!r} route at band width {width}")
     check_tensor(codes_a, "codes_a", torch.int8, (P, LA))
     check_tensor(codes_b, "codes_b", torch.int8, (P, LB))
     for name, t in (("lens_a", lens_a), ("lens_b", lens_b), ("lo", lo), ("kmax", kmax)):
@@ -160,11 +195,24 @@ def pair_kernel(
         lens_a.data_ptr(), lens_b.data_ptr(), lo.data_ptr(), kmax.data_ptr(),
         P, rows, width,
         float(np.float32(match)), float(np.float32(mismatch)),
-        float(np.float32(gap_open)), float(np.float32(gap_ext)),
+        float(np.float32(gap_open)), float(np.float32(gap_ext)), PAIR_ROUTES.index(route),
         dirs.data_ptr(), scores.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     return scores, dirs
+
+
+def pair_kernel_resources(widths=(256, 512, 1024), kernel=PAIR_KERNEL) -> dict:
+    """Kernel B as compiled for each band width of ``widths`` on its own
+    route (and the block route below :data:`WARP_MAX_WIDTH` too), from
+    ``cudaFuncGetAttributes``: keys ``"B:warp@256"`` and so on, values as
+    ``ops/cuda_align.py::score_kernel_resources``'s."""
+    fn = kernel.function("sarlacc_pair_attrs", [_I, _I, _P])
+    return {
+        f"B:{route}@{w}": kernel_resources(fn, PAIR_ROUTES.index(route), w)
+        for w in widths for route in PAIR_ROUTES
+        if route == "block" or w <= WARP_MAX_WIDTH
+    }
 
 
 def banded_pair(

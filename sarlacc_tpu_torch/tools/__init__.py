@@ -18,6 +18,9 @@ Each function takes ``device=`` (``None`` means CUDA).  On the CPU the
 kernels' plain versions run, for rehearsal at small sizes only: times there
 are host-clock CPU times and say so.
 
-:mod:`.score_tiles` has no TPU counterpart: it sweeps kernels C and D's
-compiled tile widths and register budgets, so it needs the card.
+:mod:`.score_tiles` and :mod:`.dir_tiles` have no TPU counterpart: they
+sweep kernels C and D's, and kernel A's, compiled tile widths, lanes a read
+(A) and register budgets, so they need the card.  So does
+:mod:`.kernel_turns`, which times kernels A and B of several checkouts (say
+the parent commit's and this one's) in turns on the same inputs.
 """

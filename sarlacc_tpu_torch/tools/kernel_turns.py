@@ -1,0 +1,184 @@
+"""Kernels A and B of several checkouts of the port, timed in turns on one card.
+
+    python -m sarlacc_tpu_torch.tools.kernel_turns [--pair-shapes FILE] ROOT [ROOT ...]
+
+Each ROOT is a directory that holds a ``sarlacc_tpu_torch`` package (this
+checkout is ``.``; another is, say, a ``git archive`` of the parent
+commit).  The roots run in the order given, each in a process of its own
+that imports that root's package, builds its kernels and times them with
+CUDA events (5 calls after a warm-up) on the same inputs, all made from
+seeds:
+
+* kernel A at adaptor_align's stacked ends of the bench batch
+  (``bench.py``'s mock reads, seed 7: 19 926 250-bp ends) against adaptor1
+  (R = 51) and adaptor2 (R = 14), fitting; at quality_align's launch (300
+  reads against 500 bp of read 0, global, R = 500); and at R = 150 global
+  over the stacked ends;
+* kernel B at one bucket of 4096 pipeline-shaped pairs x 1024 rows x W 256
+  and at each launch shape in ``--pair-shapes`` (``chip_smoke.py
+  --save-pair-shapes`` writes the arguments of every distinct (P, rows, W)
+  the pipeline's warm-up pass sent to ``banded_pair``).
+
+Each root's outputs are checked against its own plain versions once a
+shape (bit for bit); the runs' outputs must also agree with each other.
+Giving roots as parent, change, change, parent measures the two versions
+within one call.  It needs the card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+__all__ = ["main", "run_root"]
+
+ADAPTOR1 = "ACGCTAGCATCAGTC" + "NNNN" + "CACAGCTACGA" + "N" * 12 + "CGTACGCAT"  # bench.py:108
+ADAPTOR2 = "TGCATCGATCGCAT"
+LONG = ("ACGTRYKMSWBDHVN" * 10)[:150]
+
+
+def _inputs(torch, st, dev, pair_shapes):
+    """name -> (kernel, arguments), the same for every root."""
+    import tempfile
+
+    import numpy as np
+
+    from sarlacc_tpu_torch.api.align_internal import prepare_adaptor
+    from sarlacc_tpu_torch.core.encode import SeqBatch
+    from sarlacc_tpu_torch.ops.align import prepare_reads
+    from sarlacc_tpu_torch.ops.cuda_align import build_cost_planes, encode_mask, plane_dims
+
+    fd, fp = tempfile.mkstemp(suffix=".fastq")
+    os.close(fd)
+    try:
+        st.mock_reads(ADAPTOR1, ADAPTOR2, fp, nmolecules=950, nreads_range=(8, 14),
+                      seqlen_range=(400, 700), seed=7)
+        batch = st.read_fastq(fp)
+    finally:
+        os.remove(fp)
+    stacked = SeqBatch.concat(list(batch.front_and_back(250)))
+    cases = {}
+    for name, ref, reads, local in (
+        ("A:adaptor1", ADAPTOR1, stacked, True), ("A:adaptor2", ADAPTOR2, stacked, True),
+        ("A:quality_align", batch.seq_strings()[0][50:550], batch.take(np.arange(1, 301)), False),
+        ("A:R150", LONG, stacked, False),
+    ):
+        ad = prepare_adaptor(ref, device=dev)
+        codes, qidx, _ = prepare_reads(reads, ad.tables, device=dev)
+        l1, n_pad = plane_dims(*codes.shape)
+        planes = build_cost_planes(codes, qidx, ad.match_tab, ad.mismatch_tab, l1, n_pad)
+        cases[name] = ("A", (ad.modes, encode_mask(ad.matched), 5.0, 1.0, *planes, local))
+
+    # chip_smoke.py's bucket: 4096 length-sorted neighbours of 513-1024 bp.
+    rows, W, bw = 1024, 256, 100
+    lens = batch.lengths.astype(np.int64)
+    cand = np.flatnonzero((lens > 512) & (lens <= rows))
+    cand = cand[np.argsort(lens[cand], kind="stable")]
+    ia, ib = cand[:-1], cand[1:]
+    keep = np.abs(lens[ib] - lens[ia]) + 2 * bw + 1 <= W
+    ia, ib = ia[keep][:4096], ib[keep][:4096]
+    la, lb = lens[ia], lens[ib]
+    lo = np.minimum(0, lb - la) - bw
+    hi = np.maximum(0, lb - la) + bw
+    w = min(batch.width, rows)
+    ca = np.full((ia.size, rows), 5, np.int8)
+    ca[:, :w] = batch.codes[ia][:, :w]
+    cb = np.full((ia.size, rows), 5, np.int8)
+    cb[:, :w] = batch.codes[ib][:, :w]
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.asarray(a, dtype), device=dev)
+
+    cases[f"B:P{ia.size}xR{rows}xW{W}"] = ("B", (
+        t(ca), t(cb), t(la, np.int32), t(lb, np.int32), t(lo, np.int32),
+        t(hi - lo, np.int32), 0.0, -1.0, 5.0, 1.0, rows, W,
+    ))
+    if pair_shapes:
+        for name, args in torch.load(pair_shapes).items():
+            cases["B:" + name.split(":", 1)[-1]] = ("B", tuple(
+                a.to(dev) if torch.is_tensor(a) else a for a in args))
+    return cases
+
+
+def _checksum(torch, t, chunk: int = 1 << 26) -> float:
+    """A float64 sum of ``t`` taken in chunks, in a fixed order (a whole
+    direction plane in float64 would not fit the card)."""
+    flat = t.reshape(-1)
+    return sum(float(flat[k : k + chunk].to(torch.float64).sum())
+               for k in range(0, flat.numel(), chunk))
+
+
+def run_root(root: str, pair_shapes=None, reps: int = 5) -> dict:
+    """In this process: import ``root``'s package, time its kernels A and B
+    at every case.  Returns {"root", "device", "ms": {case: ms}, "digest":
+    {case: output checksum}}."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import sarlacc_tpu_torch as st
+    from sarlacc_tpu_torch.ops.align import dp_align
+    from sarlacc_tpu_torch.ops.cuda_align import dir_kernel
+    from sarlacc_tpu_torch.ops.cuda_msa import banded_pair_plain, pair_kernel
+
+    if not st.__file__.startswith(os.path.abspath(root) + os.sep):
+        raise RuntimeError(f"imported {st.__file__}, not the package under {root}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_turns times the kernels on the card: no CUDA device")
+    dev = torch.device("cuda")
+    kernel = {"A": dir_kernel, "B": pair_kernel}
+    plain = {"A": dp_align, "B": banded_pair_plain}
+    out = {"root": root, "device": torch.cuda.get_device_name(0), "ms": {}, "digest": {}}
+    for name, (which, args) in _inputs(torch, st, dev, pair_shapes).items():
+        got = kernel[which](*args)
+        want = plain[which](*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{root}: kernel {which} at {name} differs from its plain version")
+        out["digest"][name] = [_checksum(torch, g) for g in got]
+        del got, want
+        kernel[which](*args)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            kernel[which](*args)
+        end.record()
+        torch.cuda.synchronize()
+        out["ms"][name] = start.elapsed_time(end) / reps
+    return out
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["--worker"]:
+        _, root, shapes = argv
+        print(json.dumps(run_root(root, shapes or None)), flush=True)
+        return 0
+    shapes = ""
+    if argv[:1] == ["--pair-shapes"]:
+        shapes, argv = os.path.abspath(argv[1]), argv[2:]
+    if not argv:
+        raise SystemExit(__doc__)
+    runs = []
+    for k, root in enumerate(argv):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker", os.path.abspath(root), shapes],
+            cwd=os.path.abspath(root), capture_output=True, text=True, timeout=1800,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"turn {k} ({root}) failed:\n{proc.stderr[-3000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(f"[kernel_turns] turn {k}: {root} on {runs[-1]['device']}: "
+              + ", ".join(f"{n} {ms:.3f} ms" for n, ms in runs[-1]["ms"].items()), flush=True)
+    for run in runs[1:]:
+        if run["digest"] != runs[0]["digest"]:
+            raise AssertionError(f"{run['root']} computes other outputs than {runs[0]['root']}")
+    print(json.dumps({"turns": [r["root"] for r in runs],
+                      "ms": {n: [r["ms"][n] for r in runs] for n in runs[0]["ms"]}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

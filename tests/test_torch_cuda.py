@@ -38,7 +38,14 @@ from sarlacc_tpu_torch.ops.cuda_align import (
     score_tile,
     segments_kernel,
 )
-from sarlacc_tpu_torch.ops.cuda_msa import PAIR_KERNEL, banded_pair, banded_pair_plain, pair_kernel
+from sarlacc_tpu_torch.ops import cuda_msa
+from sarlacc_tpu_torch.ops.cuda_msa import (
+    PAIR_KERNEL,
+    banded_pair,
+    banded_pair_plain,
+    pair_kernel,
+    pair_route,
+)
 
 ADAPTOR = "ACGCTAGCATCAGTCNNNNCACAGCTACGANNNNNNNNCGTACGCAT"
 ADAPTOR2 = "TGCATCGATCGCAT"
@@ -83,6 +90,74 @@ def test_dir_kernel_matches_plain(cuda_device, ref, local):
     assert torch.equal(s_k, s_p)
 
 
+def _dir_plans(rlen, local, n_pad):
+    """dir_plan's own choice, then one tile, G tiles and more tiles than
+    lanes (several passes through the hand-off scratch) at each width."""
+    rn = max(rlen - int(local), 0)
+    plans = [cuda_align.dir_plan(rlen, local, n_pad)]
+    for tj, G in [(31, 1), (15, 2), (7, 4), (15, 8), (31, 16), (7, 32)]:
+        least = max(1, -(-rn // (tj * G)))
+        plans += [(tj, G, least), (tj, G, least + 1)]
+    return list(dict.fromkeys(plans))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "ref,local", [(ADAPTOR, True), (LONG_REF, False), (ADAPTOR2, True), ("A", True), ("", False)]
+)
+def test_dir_kernel_plans_match_plain(cuda_device, ref, local):
+    """Every tile width, lanes a read from 1 to 32 and 1 to 12 passes (the
+    scratch hand-off): directions and S equal to dp_align, and each block
+    stamped with its start, end and SM."""
+    rng = np.random.default_rng(len(ref) + 3 * local)
+    batch = _reads(rng, 300, 250)
+    ad = prepare_adaptor(ref, device=cuda_device)
+    codes, qidx, _ = prepare_reads(batch, ad.tables, device=cuda_device)
+    l1, n_pad = plane_dims(*codes.shape)
+    planes = build_cost_planes(codes, qidx, ad.match_tab, ad.mismatch_tab, l1, n_pad)
+    args = (ad.modes, encode_mask(ad.matched), 5.0, 1.0, *planes, local)
+    s_p, d_p = dp_align(*args)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for plan in _dir_plans(len(ref), local, n_pad):
+        stamps = torch.zeros((n_pad * plan[1] // 128, 3), dtype=torch.int64, device=cuda_device)
+        s_k, d_k = cuda_align._launch_dirs(*args, stamps=stamps, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(d_k, d_p), plan
+        assert torch.equal(s_k, s_p), plan
+        st = stamps.cpu()
+        assert bool((st[:, 0] > 0).all()) and bool((st[:, 1] >= st[:, 0]).all())
+        assert bool((st[:, 2] >= 0).all()) and bool((st[:, 2] < sms).all())
+
+
+@pytest.mark.cuda
+def test_dir_kernel_at_quality_align_shape(cuda_device):
+    """quality_align's launch: 300 reads up to 700 bp against 500 bp,
+    global, 32 lanes a read."""
+    rng = np.random.default_rng(11)
+    batch = _reads(rng, 300, 700)
+    ref = "".join(rng.choice(list("ACGT"), 500))
+    ad = prepare_adaptor(ref, device=cuda_device)
+    codes, qidx, _ = prepare_reads(batch, ad.tables, device=cuda_device)
+    l1, n_pad = plane_dims(*codes.shape)
+    assert cuda_align.dir_plan(500, False, n_pad) == (31, 32, 1)
+    planes = build_cost_planes(codes, qidx, ad.match_tab, ad.mismatch_tab, l1, n_pad)
+    args = (ad.modes, encode_mask(ad.matched), 5.0, 1.0, *planes, False)
+    s_k, d_k = dir_kernel(*args)
+    s_p, d_p = dp_align(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, d_p)
+    assert torch.equal(s_k, s_p)
+
+
+@pytest.mark.cuda
+def test_dir_kernel_resources(cuda_device):
+    res = cuda_align.dir_kernel_resources()
+    assert sorted(res) == sorted(f"A@{tj}" for tj in cuda_align.DIR_TILES)
+    for r in res.values():
+        assert 0 < r["registers"] <= 255 and r["threads"] == 128
+        assert r["blocks_per_sm"] >= 1 and 0 < r["occupancy"] <= 1
+
+
 @pytest.mark.cuda
 def test_fit_dirs_launches_kernel_once(cuda_device):
     batch = _reads(np.random.default_rng(1), 40, 60)
@@ -113,8 +188,9 @@ def _pairs(rng, P, rows, W, bw):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "rows,W",
-    # threads = W at W = 32 and 64; 1, 4 and 8 cells a thread at 256, 1024
-    # and 2048; 16 cells and >48 KB of shared memory at 4096.
+    # The warp route at W = 32, 64 and 256 (1, 2 and 8 cells a lane); the
+    # block route at 1024 and 2048 (4 and 8 cells a thread) and at 4096 (16
+    # cells, >48 KB of shared memory).
     [(64, 32), (64, 64), (256, 256), (512, 1024), (128, 2048), (64, 4096)],
 )
 def test_pair_kernel_matches_plain(cuda_device, rows, W):
@@ -128,6 +204,34 @@ def test_pair_kernel_matches_plain(cuda_device, rows, W):
     torch.cuda.synchronize()
     assert torch.equal(d_k, d_p)
     assert torch.equal(s_k, s_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["warp", "block"])
+@pytest.mark.parametrize("rows,W", [(64, 32), (64, 64), (96, 128), (256, 256), (512, 512)])
+def test_pair_kernel_routes_match_plain(cuda_device, rows, W, route):
+    """Both routes at every width the warp route takes (W <= 512 runs the
+    warp route unless measurement forces the block one)."""
+    assert pair_route(W) == "warp"
+    rng = np.random.default_rng(rows + W + len(route))
+    arrays = _pairs(rng, 257, rows, W, bw=min(100, (W - 26) // 2))
+    args = [torch.as_tensor(a, device=cuda_device) for a in arrays]
+    before = PAIR_KERNEL.launches
+    s_k, d_k = cuda_msa._launch_pair(*args, 2.0, -3.0, 4.0, 2.0, rows, W, route=route)
+    assert PAIR_KERNEL.launches == before + 1
+    s_p, d_p = banded_pair_plain(*args, 2.0, -3.0, 4.0, 2.0, rows, W)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, d_p)
+    assert torch.equal(s_k, s_p)
+
+
+@pytest.mark.cuda
+def test_pair_kernel_resources(cuda_device):
+    res = cuda_msa.pair_kernel_resources((32, 256, 512, 1024, 4096))
+    assert "B:warp@1024" not in res and "B:warp@512" in res and "B:block@4096" in res
+    for name, r in res.items():
+        assert 0 < r["registers"] <= 255 and r["blocks_per_sm"] >= 1, name
+        assert r["threads"] == (128 if name.startswith("B:warp") else min(int(name.split("@")[1]), 256))
 
 
 @pytest.mark.cuda

@@ -259,3 +259,46 @@ def test_score_tiles_routes_each_case_to_its_width():
         assert f"#define SCORE_MIN_BLOCKS_{tj} {blocks}\n" in source
     with pytest.raises(ValueError, match="needs the card"):
         score_tiles.measure(device="cpu")
+
+
+def test_dir_tiles_plans_and_builds():
+    """Kernel A's sweep at a tiny size on the CPU: each case gets the
+    wrapper's plan, the tried plans cover the reference in at most
+    MAX_PASSES passes, and each build's nvcc command carries its register
+    ask beside the production flags.  Timing the builds needs the card."""
+    from sarlacc_tpu_torch.ops.cuda_align import DIR_TILES, _ordinary
+    from sarlacc_tpu_torch.tools import dir_tiles
+
+    cases = dir_tiles.make_cases(torch.device("cpu"), n_ends=5, n_quality=3)
+    assert sorted(cases) == ["adaptor1", "adaptor2", "multi-pass", "quality"]
+    own = {name: dir_tiles.own_plan(args) for name, (args, _) in cases.items()}
+    assert own == {"adaptor1": (7, 8, 1), "adaptor2": (7, 2, 1), "quality": (31, 32, 1),
+                   "multi-pass": (15, 16, 1)}
+    for name, (args, cells) in cases.items():
+        rn = _ordinary(int(args[0].shape[0]), args[-1])
+        tried = dir_tiles.plans(args)
+        assert all(p * G * tj >= rn and p <= dir_tiles.MAX_PASSES for tj, G, p in tried)
+        assert {tj for tj, _, _ in tried} <= set(DIR_TILES) and cells > 0
+    kern = dir_tiles.variant_kernel(5)
+    cmd = kern.command("nvcc")
+    assert [c for c in cmd if c.startswith("-D")] == [
+        "-DDIR_MIN_BLOCKS_7=5", "-DDIR_MIN_BLOCKS_15=5", "-DDIR_MIN_BLOCKS_31=5"]
+    assert "--fmad=false" in cmd and cmd[-1] == kern.source
+    source = open(kern.source).read()
+    for tj, blocks in dir_tiles.PRODUCTION.items():
+        assert f"#define DIR_MIN_BLOCKS_{tj} {blocks}\n" in source
+    with pytest.raises(ValueError, match="needs the card"):
+        dir_tiles.measure(device="cpu")
+
+
+def test_kernel_turns_needs_the_card_and_each_root_package(tmp_path):
+    """Each turn imports its own root's package and refuses to time without
+    a card; a root without the package fails its turn."""
+    from sarlacc_tpu_torch.tools import kernel_turns
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the turn would run")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kernel_turns.run_root(str(ROOT))
+    with pytest.raises(RuntimeError, match="turn 0"):
+        kernel_turns.main([str(tmp_path)])

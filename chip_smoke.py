@@ -33,9 +33,18 @@ on its own line:
    with tests/golden/pipeline_mock.json;
 5. pipeline: the ~10k-read workload of bench.py (950 molecules, 8-14 reads
    each, 400-700 bp, seed 7, 12 bp UMI): one warm-up pass that also times
-   the plain-PyTorch device steps and records kernel B's launch shapes,
-   then one timed pass with per-stage seconds and the kernels' launch
-   counts;
+   the plain-PyTorch device steps and both library routes' steps, prints
+   the stage profiler's report and records kernel B's launch shapes, then
+   one timed pass (the default, device-library route of multi_read_align)
+   with per-stage seconds, peak allocated memory and the kernels' launch
+   counts, then multi_read_align on its reads and groups with
+   SARLACC_HOST_LIB=1, timed, and once more with the step timers;
+   msa_library: both libraries on the card for the first segment of those
+   groups, held to the JAX package's device-vs-host tolerances (the same
+   pairs and (a, b) entries, identities within 1e-6, weights within one
+   quantum), then the device route on 40 groups of 2-10 reads on the card
+   against ``device="cpu"`` with the segment budget pinned (table,
+   identities and strings bit-equal);
 6. golden demux: tests/golden/barcode_demux.json through adaptor_align ->
    barcode_align -> get_barcode_thresholds on the card;
 7. demux: bench.py::bench_demux's pass (100 000 random 250-bp ends against
@@ -555,7 +564,7 @@ def run_pipeline(torch, st, batch, adaptor1, dev, timings=None):
     mark("multi_read_align")
     cons = st.consensus_read_seq(msa, device=dev)
     mark("consensus")
-    return aligned, umis, groups, msa, cons
+    return aligned, umis, groups, msa, cons, reads, filt
 
 
 def reset(kernels) -> None:
@@ -573,7 +582,7 @@ def phase_golden(torch, st, kernels, required, dev):
         seqlen_range=(350, 600), seed=20240817,
     )
     reset(kernels)
-    aligned, umis, groups, msa, cons = run_pipeline(torch, st, batch, ADAPTOR1_GOLDEN, dev)
+    aligned, umis, groups, msa, cons, _, _ = run_pipeline(torch, st, batch, ADAPTOR1_GOLDEN, dev)
     counts = read_counts(kernels)
     snap = {
         "n_reads": int(len(batch)),
@@ -604,13 +613,20 @@ def phase_golden(torch, st, kernels, required, dev):
     return counts
 
 
-#: Steps timed in the warm-up pass, (module, name): the plain-PyTorch
-#: device steps, the two kernels' wrappers, and the host-side work of the
-#: MSA stage.  The triplet extension runs in a thread pool, so its total
-#: is summed over threads and can exceed its share of the wall clock.
+#: Steps timed in the warm-up pass and in the host-route pass, (module,
+#: name): the plain-PyTorch device steps, the two kernels' wrappers, the
+#: two library routes and their steps, and the host-side work of the MSA
+#: stage.  The triplet extension runs in a thread pool, so its total is
+#: summed over threads and can exceed its share of the wall clock.
 STEPS = (
     ("sarlacc_tpu_torch.api.align_internal", "qmap_walk"),
     ("sarlacc_tpu_torch.api.umi", "lev2_matrix"),
+    ("sarlacc_tpu_torch.api.msa", "_build_library_device"),
+    ("sarlacc_tpu_torch.api.msa", "_build_library_host"),
+    ("sarlacc_tpu_torch.api.msa", "pair_maps_device"),
+    ("sarlacc_tpu_torch.ops.msa", "_pair_ident_kernel"),
+    ("sarlacc_tpu_torch.ops.msa", "_arena_place_kernel"),
+    ("sarlacc_tpu_torch.api.msa", "_extend_chunk_kernel"),
     ("sarlacc_tpu_torch.ops.msa", "_pair_walk_kernel"),
     ("sarlacc_tpu_torch.ops.msa", "_merge_cost_init"),
     ("sarlacc_tpu_torch.ops.msa", "_merge_accum_kernel"),
@@ -702,9 +718,15 @@ def step_report(totals) -> str:
 
 
 def phase_pipeline(torch, st, batch, kernels, required, dev):
-    """The warm-up pass (step timers; it also records the arguments of each
-    distinct kernel-B launch shape), then the timed pass.  Returns (launch
-    counts, the aligned frame, {shape: banded_pair arguments})."""
+    """The warm-up pass (step timers and the stage profiler; it also records
+    the arguments of each distinct kernel-B launch shape), the timed pass
+    (the default, device-library route), then ``multi_read_align`` once
+    more on the timed pass's reads and groups with ``SARLACC_HOST_LIB=1``,
+    timed, then again with the step timers.  Returns (launch counts, the
+    aligned frame, {shape: banded_pair arguments}, realized reads, groups)."""
+    from sarlacc_tpu_torch.utils import PipelineProfiler, get_profiler, set_profiler
+
+    set_profiler(PipelineProfiler())
     pair_calls, unrecord = record_pair_calls(torch)
     totals, restore = timed_steps(torch)
     try:
@@ -716,11 +738,13 @@ def phase_pipeline(torch, st, batch, kernels, required, dev):
         unrecord()
     log(f"[pipeline] warm-up pass {warm_s:.3f} s; synchronized step times: "
         f"{step_report(totals)}; kernel-B shapes {sorted(pair_calls)}")
+    log("[pipeline] stage profiler after the warm-up pass:\n" + get_profiler().report())
 
     reset(kernels)
     torch.cuda.reset_peak_memory_stats()
     timings: list = []
-    aligned, _, groups, msa, cons = run_pipeline(torch, st, batch, ADAPTOR1_BENCH, dev, timings)
+    aligned, _, groups, msa, cons, reads, filt = run_pipeline(
+        torch, st, batch, ADAPTOR1_BENCH, dev, timings)
     counts = read_counts(kernels)
     stages = {
         name: timings[i][1] - timings[i - 1][1] for i, (name, _) in enumerate(timings) if i
@@ -739,7 +763,118 @@ def phase_pipeline(torch, st, batch, kernels, required, dev):
         f"consensus reads: {total:.3f} s = {len(batch) / total:.1f} reads/s; stages "
         + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
         + f"; peak allocated {peak:.2f} GiB; launches {counts}")
-    return counts, aligned, pair_calls
+
+    def host_route():
+        os.environ["SARLACC_HOST_LIB"] = "1"
+        try:
+            return st.multi_read_align(reads, groups=filt, bandwidth=100, device=dev)
+        finally:
+            del os.environ["SARLACC_HOST_LIB"]
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = host_route()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    host_peak = torch.cuda.max_memory_allocated() / 2**30
+    differ = sum(a != b for a, b in zip(host["alignments"], msa["alignments"]))
+    log(f"[pipeline] multi_read_align on {len(filt)} groups: device-library route "
+        f"{stages['multi_read_align']:.3f} s (peak allocated {peak:.2f} GiB over the pass), "
+        f"SARLACC_HOST_LIB=1 route {host_s:.3f} s (peak allocated {host_peak:.2f} GiB); "
+        f"{differ} groups' strings differ between the routes")
+    totals, restore = timed_steps(torch)
+    try:
+        host_route()
+    finally:
+        restore()
+    log(f"[pipeline] SARLACC_HOST_LIB=1 route with synchronized step times: "
+        f"{step_report(totals)}")
+    return counts, aligned, pair_calls, reads, filt
+
+
+def phase_msa_library(torch, st, reads, filt, dev, n_slice=40):
+    """Both libraries on the card for the first segment of the pipeline's
+    groups (the same pairs, (a, b) entries and identities within 1e-6,
+    weights within one quantum: the JAX package's own device-vs-host
+    tolerances), then the device route on the card against ``device="cpu"``
+    on the first ``n_slice`` groups of at most 10 reads, with the segment
+    budget pinned on both (table, identities and strings bit-equal)."""
+    import numpy as np
+
+    import sarlacc_tpu_torch.api.msa as msa
+
+    cpu = torch.device("cpu")
+    by_group = [np.asarray(g, np.int64) for g in filt]
+    codes, lengths = reads.codes, reads.lengths
+    seg = msa._segments(lengths, by_group, list(range(len(by_group))),
+                        msa._segment_lib_budget(dev))[0]
+    args = (codes, lengths, by_group, seg, 0.0, -1.0, 5.0, 1.0, 100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (tab_d, _), seg_d, id_d = msa._build_library_device(*args, dev)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    dev_peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    (tab_h, _), seg_h, id_h = msa._build_library_host(*args, dev)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    id_err = max(float(np.abs(a - b).max()) for a, b in zip(id_d, id_h))
+    if id_err > 1e-6:
+        raise AssertionError(f"msa_library: identities differ by {id_err} between the routes")
+    if set(seg_d) != set(seg_h):
+        raise AssertionError("msa_library: the routes' pair sets differ")
+    tab_d, tab_h = tab_d.cpu().numpy(), tab_h.cpu().numpy()
+    same, quantum = 0, 0
+    for key, (hs, hn) in seg_h.items():
+        ds, dn = seg_d[key]
+        if hn != dn:
+            raise AssertionError(f"msa_library: pair {key} has {dn} entries on the device "
+                                 f"route, {hn} on the host route")
+        d, h = tab_d[ds : ds + dn], tab_h[hs : hs + hn]
+        d = d[np.lexsort((d[:, 1], d[:, 0]))]
+        h = h[np.lexsort((h[:, 1], h[:, 0]))]
+        if not np.array_equal(d[:, :2], h[:, :2]):
+            raise AssertionError(f"msa_library: pair {key} has other (a, b) entries")
+        gap = int(np.abs(d[:, 2].astype(np.int64) - h[:, 2]).max(initial=0))
+        if gap > 1:
+            raise AssertionError(f"msa_library: pair {key}'s weights differ by {gap} quanta")
+        same += int(np.array_equal(d, h))
+        quantum += int(np.count_nonzero(d[:, 2] != h[:, 2]))
+    log(f"[msa_library] segment 1 of the pipeline's groups ({len(seg)} groups, {len(seg_h)} "
+        f"pairs, {tab_h.shape[0]} entries): device route {dev_s:.3f} s (peak allocated "
+        f"{dev_peak:.2f} GiB), host route {host_s:.3f} s; identities within {id_err:.3g}, "
+        f"{same} of {len(seg_h)} pairs bit-equal, {quantum} entries one quantum apart")
+
+    # The card against the CPU on a slice, one pinned segment budget: the
+    # first groups of at most 10 reads (slot classes 2-10; the plain DPs
+    # make the CPU side cost ~30 ms a pair).
+    sl = [i for i, g in enumerate(by_group) if g.size <= 10][:n_slice]
+    if not msa._device_lib_ok(lengths, by_group, sl, cpu):
+        raise AssertionError("msa_library: the slice would take the host route on the CPU")
+    args = (codes, lengths, by_group, sl, 0.0, -1.0, 5.0, 1.0, 100)
+    t0 = time.perf_counter()
+    (tab_c, _), seg_c, id_c = msa._build_library_device(*args, dev)
+    (tab_p, _), seg_p, id_p = msa._build_library_device(*args, cpu)
+    if seg_c != seg_p or not torch.equal(tab_c.cpu(), tab_p):
+        raise AssertionError("msa_library: the device table differs between the card and the CPU")
+    if not all(np.array_equal(a, b) for a, b in zip(id_c, id_p)):
+        raise AssertionError("msa_library: identities differ between the card and the CPU")
+    groups = [filt[i] for i in sl]
+    budget = msa._segment_lib_budget
+    msa._segment_lib_budget = lambda device: 1 << 30
+    try:
+        card = st.multi_read_align(reads, groups=groups, bandwidth=100, device=dev)
+        on_cpu = st.multi_read_align(reads, groups=groups, bandwidth=100, device="cpu")
+    finally:
+        msa._segment_lib_budget = budget
+    if card["alignments"] != on_cpu["alignments"]:
+        raise AssertionError("msa_library: strings differ between the card and the CPU")
+    log(f"[msa_library] {len(sl)} groups ({len(seg_c)} pairs, {tab_c.shape[0]} entries): "
+        f"device route on the card equal to device='cpu' (table, identities, strings; "
+        f"segment budget pinned at 1 GiB); comparison {time.perf_counter() - t0:.1f} s")
 
 
 def phase_golden_demux(torch, st, kernels, kernel_d, dev):
@@ -1138,13 +1273,15 @@ def main(argv=None) -> int:
     krows += phase_score_kernels(torch, st, demux, bench, dev)
     # Each path runs with every count at 0 and reports all four kernels.
     by_path = {"golden": phase_golden(torch, st, kernels, (DIR_KERNEL, PAIR_KERNEL), dev)}
-    by_path["pipeline"], aligned, pair_calls = phase_pipeline(
+    by_path["pipeline"], aligned, pair_calls, reads, filt = phase_pipeline(
         torch, st, bench, kernels, (DIR_KERNEL, PAIR_KERNEL), dev)
     krows += pair_rows(torch, pair_calls, dev)  # kernel B at the pipeline's own shapes
     if save_pair_shapes:
         torch.save(pair_calls, save_pair_shapes)
         log(f"[pipeline] kernel-B launch arguments saved to {save_pair_shapes}")
     del pair_calls
+    phase_msa_library(torch, st, reads, filt, dev)
+    del reads, filt
     by_path["golden_demux"] = phase_golden_demux(torch, st, kernels, SEGMENTS_KERNEL, dev)
     by_path["demux"] = phase_demux(torch, st, demux, kernels, dev)
     by_path["calibration"] = phase_calibration(torch, st, bench, aligned, kernels, dev)

@@ -9,19 +9,21 @@ Budgets replace the JAX package's ``utils/membudget.py``: a fraction of the
 card's free memory at first probe (less a fixed reserve for the caching
 allocator's slack), or a fixed fallback on the CPU.  Probed once per
 process, so the pipeline's own allocations never shrink later budgets.
+Each budget is recorded under its name for :func:`budget_report`.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "memory_budget"]
+__all__ = ["resolve_device", "memory_budget", "budget_report"]
 
 #: Headroom kept out of every budget: allocator fragmentation, cuBLAS
 #: workspaces and the kernels' own scratch.
 _RESERVE_BYTES = 2 << 30
 
 _FREE_BYTES: dict[int, int] = {}
+_GIVEN: dict[str, tuple[str, int]] = {}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -35,15 +37,30 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def memory_budget(device: torch.device, fraction: float, fallback: int) -> int:
+def memory_budget(device: torch.device, fraction: float, fallback: int, name: str) -> int:
     """``fraction`` of the card's free memory at first probe, else ``fallback``.
 
-    Floors at 64 MiB so a nearly-full card degrades to small windows.
+    Floors at 64 MiB so a nearly-full card degrades to small windows.  The
+    result is recorded under ``name`` for :func:`budget_report`.
     """
     if device.type != "cuda":
-        return fallback
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _FREE_BYTES:
-        free, _ = torch.cuda.mem_get_info(index)
-        _FREE_BYTES[index] = max(int(free) - _RESERVE_BYTES, 0)
-    return max(int(_FREE_BYTES[index] * fraction), 64 << 20)
+        out = fallback
+    else:
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        if index not in _FREE_BYTES:
+            free, _ = torch.cuda.mem_get_info(index)
+            _FREE_BYTES[index] = max(int(free) - _RESERVE_BYTES, 0)
+        out = max(int(_FREE_BYTES[index] * fraction), 64 << 20)
+    _GIVEN[name] = (str(device), out)
+    return out
+
+
+def budget_report() -> str:
+    """The budgets handed out so far, each with its device, and the free
+    memory each card had at its first probe."""
+    free = ", ".join(f"cuda:{i} {b / 2**30:.2f} GiB" for i, b in sorted(_FREE_BYTES.items()))
+    src = f"free at first probe: {free}" if free else "no card probed, fallback constants"
+    parts = ", ".join(
+        f"{k}={v / 2**30:.2f} GiB ({d})" for k, (d, v) in sorted(_GIVEN.items())
+    )
+    return f"memory budgets [{src}]: {parts or 'none requested yet'}"

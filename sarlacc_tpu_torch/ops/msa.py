@@ -1,21 +1,27 @@
 """Device steps of the multiple-sequence-alignment subsystem (PyTorch).
 
-Counterpart of ``sarlacc_tpu/ops/msa.py`` for the host-library path:
+Counterpart of ``sarlacc_tpu/ops/msa.py``:
 
-* :func:`banded_pair_align` — the pairwise library workload: read pairs
-  bucketed by (rows, band width), kernel B per bucket chunk
-  (:func:`..ops.cuda_msa.banded_pair`), then the Gotoh walk
-  (:func:`_pair_walk_kernel`) on the device; only the per-row matched
+* :func:`banded_pair_align` — the pairwise library workload of the
+  host-library route: read pairs bucketed by (rows, band width), kernel B
+  per bucket chunk (:func:`..ops.cuda_msa.banded_pair`), then the Gotoh
+  walk (:func:`_pair_walk_kernel`) on the device; only the per-row matched
   positions come back.
+* :func:`pair_maps_device`, :func:`_extend_chunk_kernel` — the device
+  library (the JAX package's default route): the same launches, but each
+  walk's matched positions stay on the device as forward and reverse
+  position maps (:func:`_arena_place_kernel`) beside a float32 identity per
+  pair (:func:`_pair_ident_kernel`), and the consistency extension composes
+  those maps with gathers and small sorts into the packed entry table.
 * :func:`merge_wave_from_library` — one wave of progressive profile merges:
   blank banded cost planes (:func:`_merge_cost_init`), the library weights
   added in through the position->column maps (:func:`_merge_accum_kernel`),
   the gapless max-weight-trace DP (:func:`_profile_merge_kernel`) and its
   walk (:func:`_merge_walk_kernel`).
 
-The walks, the merge DP and the accumulation are plain PyTorch on the
-device: one small launch per row or step.  The JAX package's scans become
-Python loops here.
+The walks, the merge DP, the accumulation and the library steps are plain
+PyTorch on the device: one small launch per row or step.  The JAX
+package's scans become Python loops here.
 """
 
 from __future__ import annotations
@@ -23,13 +29,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import memory_budget
+from ..device import memory_budget, resolve_device
+from ..utils.profiling import StageStats, get_profiler
 from .cuda_msa import NEG, banded_pair
 
 __all__ = [
     "banded_pair_align",
     "band_halfwidth",
     "merge_wave_from_library",
+    "pair_maps_device",
+    "ARENA_ZERO_ROW",
+    "ARENA_IDENT_ROW",
     "MERGE_ENTRY_CHUNK",
 ]
 
@@ -155,10 +165,12 @@ def _run_pair_bucket(
     codes_a, lens_a, codes_b, lens_b, lo, hi,
     match, mismatch, gap_open, gap_ext, rows_b, W_b, device,
 ):
-    """One shape-bucketed launch: kernel B + the device walk.
+    """One shape-bucketed launch: kernel B, the device walk and the pairs'
+    identities.
 
     Code rows pad with 5 to the bucket widths (A exactly to ``rows_b``).
-    Returns (scores f32 [P], jmat int32 [rows_b, P]) on ``device``.
+    Returns (scores f32 [P], jmat int32 [rows_b, P], ident f32 [P]) on
+    ``device``.
     """
     P = codes_a.shape[0]
     lb_b = _bkt(max(int(lens_b.max()), 1), 64)
@@ -172,13 +184,70 @@ def _run_pair_bucket(
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
     lens_a_d, lens_b_d, lo_d = dev(lens_a), dev(lens_b), dev(lo)
+    ca, cb = _pad2(np.asarray(codes_a), rows_b), _pad2(np.asarray(codes_b), lb_b)
     scores, dirs = banded_pair(
-        _pad2(np.asarray(codes_a), rows_b), _pad2(np.asarray(codes_b), lb_b),
-        lens_a_d, lens_b_d, lo_d, dev(np.asarray(hi) - np.asarray(lo)),
+        ca, cb, lens_a_d, lens_b_d, lo_d, dev(np.asarray(hi) - np.asarray(lo)),
         match, mismatch, gap_open, gap_ext, rows_b, W_b,
     )
     jmat = _pair_walk_kernel(dirs, lens_a_d, lens_b_d, lo_d)
-    return scores, jmat
+    del dirs
+    return scores, jmat, _pair_ident_kernel(jmat, ca, cb)
+
+
+def _pair_ident_kernel(jmat, codes_a, codes_b):
+    """Fractional identity per pair from the walk's jmat, on the device.
+
+    jmat [rows, P] (row r-1 = matched B-position of A-position r, 0 =
+    none); codes_* [P, L].  frac = (#matched positions with equal bases) /
+    max(#matched, 1), divided in float32 as the JAX package's default route
+    divides it.
+    """
+    rows, P = jmat.shape
+    jm = jmat.t().to(torch.int64)  # [P, rows]
+    matched = jm > 0
+    take = min(rows, codes_a.shape[1])
+    ca = torch.zeros((P, rows), dtype=torch.int64, device=jm.device)
+    ca[:, :take] = codes_a[:, :take]
+    lb = codes_b.shape[1]
+    cb = codes_b.to(torch.int64).gather(1, (jm - 1).clamp(0, lb - 1))
+    eq = matched & (ca == cb)
+    cnt = matched.sum(dim=1)
+    return eq.sum(dim=1).to(torch.float32) / cnt.clamp(min=1).to(torch.float32)
+
+
+def _bkt_arr(x, base):
+    out = np.full_like(x, base)
+    while True:
+        small = out < x
+        if not small.any():
+            return out
+        out[small] *= 2
+
+
+def _pair_buckets(lens_a, lens_b, bandwidth):
+    """Per pair: band (lo, hi) and its (rows, band width) launch bucket.
+    Counts the pairs and DP cells on the ``msa.pair_library`` stage."""
+    diffs = lens_b.astype(np.int64) - lens_a.astype(np.int64)
+    lo = (np.minimum(0, diffs) - bandwidth).astype(np.int32)
+    hi = (np.maximum(0, diffs) + bandwidth).astype(np.int32)
+    rows_c = _bkt_arr(np.maximum(lens_a.astype(np.int64), 1), 64)
+    W_c = _bkt_arr((hi - lo + 1).astype(np.int64), 64)
+    dpstat = get_profiler().stages.setdefault("msa.pair_library", StageStats())
+    dpstat.items += lens_a.size
+    dpstat.cells += int((rows_c * W_c).sum())
+    return lo, hi, rows_c, W_c
+
+
+def _pair_launches(rows_c, W_c, device):
+    """(rows, W, pair indices) of each kernel-B launch: one per shape
+    bucket, chunked so a launch's int8 directions stay within 1/8 of the
+    card's free memory (1 GiB on the CPU)."""
+    budget = memory_budget(device, 1 / 8, 1 << 30, "pair_dirs")
+    for key in sorted(set(zip(rows_c.tolist(), W_c.tolist()))):
+        idx = np.flatnonzero((rows_c == key[0]) & (W_c == key[1]))
+        step = _pair_chunk(int(key[0]), int(key[1]), budget)
+        for c0 in range(0, idx.size, step):
+            yield int(key[0]), int(key[1]), idx[c0 : c0 + step]
 
 
 def banded_pair_align(
@@ -193,51 +262,32 @@ def banded_pair_align(
     bandwidth: int,
     device=None,
 ):
-    """Batch of banded global pairwise alignments on ``device`` (default CPU).
+    """Batch of banded global pairwise alignments on ``device`` (``None``
+    means CUDA).
 
     Pairs are partitioned into (rows, band-width) shape classes so that one
     ragged batch doesn't inflate everyone's DP to the worst case; each class
     is chunked by memory.  Returns (scores [P] float64, paths: list of
     (ai, bi) matched-position arrays, 1-based).
     """
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     P = codes_a.shape[0]
     lens_a = np.asarray(lens_a, np.int32)
     lens_b = np.asarray(lens_b, np.int32)
     if P == 0:
         return np.zeros(0), []
-    diffs = lens_b.astype(np.int64) - lens_a.astype(np.int64)
-    lo = (np.minimum(0, diffs) - bandwidth).astype(np.int32)
-    hi = (np.maximum(0, diffs) + bandwidth).astype(np.int32)
+    lo, hi, rows_c, W_c = _pair_buckets(lens_a, lens_b, bandwidth)
 
-    def _bkt_arr(x, base):
-        out = np.full_like(x, base)
-        while True:
-            small = out < x
-            if not small.any():
-                return out
-            out[small] *= 2
-
-    rows_c = _bkt_arr(np.maximum(lens_a.astype(np.int64), 1), 64)
-    W_c = _bkt_arr((hi - lo + 1).astype(np.int64), 64)
-
-    # Direction bytes per launch: 1/8 of the card's free memory (the walk's
-    # per-row temporaries are small beside them), 1 GiB on the CPU.
-    budget = memory_budget(device, 1 / 8, 1 << 30)
     scores = np.zeros(P, np.float64)
     paths: list = [None] * P
     pending = []
-    for key in sorted(set(zip(rows_c.tolist(), W_c.tolist()))):
-        idx = np.flatnonzero((rows_c == key[0]) & (W_c == key[1]))
-        step = _pair_chunk(int(key[0]), int(key[1]), budget)
-        for c0 in range(0, idx.size, step):
-            sub = idx[c0 : c0 + step]
-            sc, jmat = _run_pair_bucket(
-                codes_a[sub], lens_a[sub], codes_b[sub], lens_b[sub],
-                lo[sub], hi[sub], match, mismatch, gap_open, gap_ext,
-                int(key[0]), int(key[1]), device,
-            )
-            pending.append((sub, sc, jmat))
+    for rows_b, W_b, sub in _pair_launches(rows_c, W_c, device):
+        sc, jmat, _ = _run_pair_bucket(
+            codes_a[sub], lens_a[sub], codes_b[sub], lens_b[sub],
+            lo[sub], hi[sub], match, mismatch, gap_open, gap_ext,
+            rows_b, W_b, device,
+        )
+        pending.append((sub, sc, jmat))
     for sub, sc, jmat in pending:
         scores[sub] = sc.cpu().numpy().astype(np.float64)[: sub.size]
         pt = _compact_jmat(jmat.cpu().numpy(), sub.size)
@@ -450,3 +500,134 @@ def merge_wave_from_library(lib_dev, merges_desc, rows_b, W_b):
     dirs = _profile_merge_kernel(cost, la_d, lb_d, lo_d, km_d)
     del cost
     return _merge_walk_kernel(dirs, la_d, lb_d, lo_d)
+
+
+# ---------------------------------------------------------------------------
+# Device-resident T-Coffee library (the JAX package's default route): the
+# pair walks' jmats are the dense position maps, so the consistency
+# extension is gather and small-sort work on the device, and the extended
+# library never crosses to the host.
+# ---------------------------------------------------------------------------
+
+ARENA_ZERO_ROW = 0  # all zeros: composing through it yields dead entries
+ARENA_IDENT_ROW = 1  # identity map: the base x~y entries reuse the
+# composition (x->y composed with the identity)
+
+#: Candidate slots (pairs x slots x positions) one extension launch takes:
+#: bounds its int64 temporaries to a few hundred MB each.
+EXTEND_CHUNK_ELEMS = 1 << 24
+
+
+def pair_maps_device(
+    codes, lengths, ga, gb, match, mismatch, gap_open, gap_ext, bandwidth, device,
+):
+    """Align every (ga[i], gb[i]) read pair and keep its path on ``device``.
+
+    Returns (arena int16 [2 + 2J, stride], fracs float64 [J]): pair i's
+    forward map (A-position -> matched B-position, 0 = none) is arena row
+    ``2 + 2i`` and its reverse map row ``3 + 2i``; row 0 is all zeros and
+    row 1 the identity.  ``stride`` is the pow2 (>= 128) above the longest
+    read.  ``fracs`` is each pair's float32 identity, held as float64 (it
+    feeds the guide tree).  Pairs and DP cells count on the
+    ``msa.pair_library`` stage.
+    """
+    ga = np.asarray(ga, np.int64)
+    gb = np.asarray(gb, np.int64)
+    J = ga.size
+    lengths = np.asarray(lengths)
+    lens_a = lengths[ga].astype(np.int32)
+    lens_b = lengths[gb].astype(np.int32)
+    lmax = int(max(lens_a.max(initial=1), lens_b.max(initial=1)))
+    stride = _bkt(lmax + 1, 128)
+    arena = torch.zeros((2 + 2 * J, stride), dtype=torch.int16, device=device)
+    arena[ARENA_IDENT_ROW] = torch.arange(stride, dtype=torch.int16, device=device)
+    fracs = np.zeros(J, np.float64)
+    if J == 0:
+        return arena, fracs
+    lo, hi, rows_c, W_c = _pair_buckets(lens_a, lens_b, bandwidth)
+    codes = np.asarray(codes)
+    idents = []
+    for rows_b, W_b, sub in _pair_launches(rows_c, W_c, device):
+        _, jmat, ident = _run_pair_bucket(
+            codes[ga[sub]], lens_a[sub], codes[gb[sub]], lens_b[sub],
+            lo[sub], hi[sub], match, mismatch, gap_open, gap_ext,
+            rows_b, W_b, device,
+        )
+        _arena_place_kernel(arena, jmat, torch.as_tensor(2 + 2 * sub, device=device))
+        idents.append((sub, ident))
+    for sub, ident in idents:
+        fracs[sub] = ident.cpu().numpy().astype(np.float64)
+    return arena, fracs
+
+
+def _arena_place_kernel(arena, jmat, arow):
+    """Write one launch's position maps into ``arena`` in place.
+
+    ``jmat`` [rows, P] is the walk's output; pair q's forward map goes to
+    row ``arow[q]`` (column a holds the B-position matched to A-position a)
+    and its reverse map to row ``arow[q] + 1``.  A path is monotone, so each
+    matched B-position occurs once per pair and the reverse map is one
+    scatter; unmatched entries all write 0 into column 0.  DP rows past
+    ``stride - 1`` are padding (no read is that long) and are dropped.
+    """
+    P = arow.shape[0]
+    stride = arena.shape[1]
+    take = min(jmat.shape[0], stride - 1)
+    cols = jmat[:take, :P].t().to(torch.int64)  # matched b per a, 0 = none
+    fwd = torch.zeros((P, stride), dtype=arena.dtype, device=arena.device)
+    fwd[:, 1 : take + 1] = cols.to(arena.dtype)
+    a = torch.arange(1, take + 1, device=arena.device).expand(P, take)
+    rev = torch.zeros((P, stride), dtype=torch.int64, device=arena.device)
+    rev.scatter_(1, cols, torch.where(cols > 0, a, 0))
+    arena[arow] = fwd
+    arena[arow + 1] = rev.to(arena.dtype)
+
+
+def _extend_chunk_kernel(arena, xz_rows, zy_rows, w_slots, pair_ids, counts, w_scale, strc: int):
+    """Consistency-extend one chunk of output pairs; returns its entries.
+
+    For output pair p and slot s (slot 0 the base x~y map through the
+    identity row, each other slot one middle sequence z):
+    ``k = arena[xz_rows[p, s], a]``, ``b = arena[zy_rows[p, s], k]`` (0
+    where k is 0), weight ``w_slots[p, s]``.  Per (p, a) the slots' b's
+    sort stably (dead ones last, key ``1 << 20``); duplicate b's sum their
+    weights in float32 in slot order, starting from 0.0, by masked adds
+    (no scatter or cumsum, which could reorder float adds); the first of
+    each run at a > 0 is kept, with weight ``round(wsum * w_scale)`` (half
+    to even).  ``strc`` bounds the A-positions (the chunk's longest x plus
+    one, pow2 from 128); ``w_scale`` is a float32 scalar tensor.
+
+    Returns int32 [n, 3] rows (a, b, quantized weight), pair by pair in
+    chunk order and within a pair by a, then b, ascending; each pair's kept
+    count is added to ``counts[pair_ids[p]]`` (a pad pair, with zero rows
+    and slot weights, keeps nothing and points at a spare slot).
+    """
+    CP, SL = xz_rows.shape
+    STR = arena.shape[1]
+    XZ = arena[:, :strc][xz_rows].to(torch.int64)  # [CP, SL, strc]
+    b = arena.reshape(-1)[zy_rows[:, :, None] * STR + XZ].to(torch.int64)
+    b = torch.where(XZ > 0, b, 0)
+    del XZ
+
+    bt = b.transpose(1, 2)  # [CP, strc, SL]
+    DEAD = 1 << 20
+    key = torch.where(bt > 0, bt, DEAD)
+    del b, bt
+    key_s, perm = torch.sort(key, dim=2, stable=True)
+    del key
+    w_s = w_slots.gather(1, perm.reshape(CP, -1)).reshape(perm.shape)
+    del perm
+    valid = key_s < DEAD
+    first = valid.clone()
+    first[..., 1:] &= key_s[..., 1:] != key_s[..., :-1]
+    w_live = torch.where(valid, w_s, 0.0)
+    wsum = torch.zeros_like(w_s)
+    for j in range(SL):
+        wsum = wsum + torch.where(key_s == key_s[..., j : j + 1], w_live[..., j : j + 1], 0.0)
+
+    a_idx = torch.arange(strc, device=arena.device)[None, :, None]
+    keep = first & (a_idx > 0)
+    p, a, j = keep.nonzero(as_tuple=True)
+    wq = torch.round(wsum[p, a, j] * w_scale)
+    counts.index_add_(0, pair_ids, keep.sum(dim=(1, 2)).to(counts.dtype))
+    return torch.stack([a, key_s[p, a, j], wq.to(torch.int64)], dim=1).to(torch.int32)

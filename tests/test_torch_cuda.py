@@ -473,3 +473,38 @@ def test_rowblock_scan_on_card_matches_cpu(cuda_device):
         lev2_condensed(codes[:300], lengths[:300], device=cuda_device),
         lev2_condensed(codes[:300], lengths[:300], device="cpu"),
     )
+
+
+@pytest.mark.cuda
+def test_device_library_on_card_matches_cpu(cuda_device, monkeypatch):
+    """The device-library route (kernel B, the walk, the position maps and
+    the consistency extension) gives the same table, identities and strings
+    on the card as on the CPU."""
+    from sarlacc_tpu_torch.api import msa
+    from sarlacc_tpu_torch.api.msa import multi_read_align
+
+    monkeypatch.delenv("SARLACC_HOST_LIB", raising=False)
+    rng = np.random.default_rng(9)
+    seqs, groups = [], []
+    for n, length in ((6, 150), (2, 90), (11, 240), (4, 60)):
+        ref = rng.integers(0, 4, length)
+        groups.append(list(range(len(seqs), len(seqs) + n)))
+        for _ in range(n):
+            s = ref.copy()
+            mut = rng.random(length) < 0.08
+            s[mut] = rng.integers(0, 4, int(mut.sum()))
+            keep = rng.random(length) >= 0.03
+            seqs.append("".join("ACGT"[c] for c in s[keep]))
+    batch = SeqBatch.from_strings(seqs)
+    by_group = [np.asarray(g) for g in groups]
+    args = (batch.codes, batch.lengths, by_group, [0, 1, 2, 3], 0.0, -1.0, 5.0, 1.0, 30)
+    (tab_c, inv_c), seg_c, id_c = msa._build_library_device(*args, cuda_device)
+    (tab_p, inv_p), seg_p, id_p = msa._build_library_device(*args, torch.device("cpu"))
+    assert inv_c == inv_p and seg_c == seg_p
+    assert torch.equal(tab_c.cpu(), tab_p)
+    for a, b in zip(id_c, id_p):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setattr(msa, "_segment_lib_budget", lambda device: 1 << 30)
+    card = multi_read_align(batch, groups=groups, bandwidth=30, device=cuda_device)
+    cpu = multi_read_align(batch, groups=groups, bandwidth=30, device="cpu")
+    assert card["alignments"] == cpu["alignments"]

@@ -168,7 +168,7 @@ def test_banded_pair_align_scores():
     lens = np.full(2, 8, np.int32)
     sub = codes.copy()
     sub[1, 3] = 0
-    scores, paths = banded_pair_align(codes, lens, sub, lens, 0, -1, 5, 1, 4)
+    scores, paths = banded_pair_align(codes, lens, sub, lens, 0, -1, 5, 1, 4, device="cpu")
     assert scores[0] == 0.0 and scores[1] == -1.0
     assert paths[0][0].tolist() == list(range(1, 9))
     assert paths[0][1].tolist() == list(range(1, 9))
@@ -176,7 +176,9 @@ def test_banded_pair_align_scores():
     rng = np.random.default_rng(8)
     a = "".join(rng.choice(list("ACGT"), 60))
     codes, lengths = encode_batch([a, a[:20] + a[40:]])  # one 20-base deletion
-    scores, _ = banded_pair_align(codes[:1], lengths[:1], codes[1:], lengths[1:], 0, -1, 5, 1, 5)
+    scores, _ = banded_pair_align(
+        codes[:1], lengths[:1], codes[1:], lengths[1:], 0, -1, 5, 1, 5, device="cpu"
+    )
     assert scores[0] == -(5 + 19)
     assert band_halfwidth(60, 40, 5) == (-25, 5)
 

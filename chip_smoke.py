@@ -18,8 +18,10 @@ on its own line:
    (theoretical, and achieved from block stamps); kernel B (banded pair DP)
    at a 4096 x 1024 x 256 bucket and, after phase 5, at each distinct
    (P, rows, W) the pipeline's warm-up pass launched, on its own route and
-   the block route beside it; kernel C (score-only DP) at the demux shape of
-   bench.py:207-240 and at calibration's (19 926 stacked ends); kernel D
+   the block route beside it, and on its wide route at W = 8192 (64
+   pairs, reads of 4.0-4.6 kb against 128-256 bp) and W = 65 536 (4
+   pairs, 31-32 kb reads, bandwidth 16 500); kernel C (score-only DP) at
+   the demux shape of bench.py:207-240 and at calibration's (19 926 stacked ends); kernel D
    (multi-segment score-only DP) at the demux shapes, with 24-bp barcodes
    (so each of its three tile widths runs), at tune_alignment's
    (19 926 stacked ends x 35 penalty points, each adaptor) and with a
@@ -27,7 +29,10 @@ on its own line:
    one; each against its plain PyTorch version on the card (directions and
    scores must be equal), with CUDA-event times, GCUPS, kernel C and D's
    registers, shared memory and occupancy (theoretical, and achieved from
-   per-block timer stamps);
+   per-block timer stamps); after phases 9 and 10, every kernel once more
+   at each launch shape the mesh run and rank 0 of the distributed run
+   launched (recorded as they ran; kernel B one shape a band width),
+   against its plain version;
 4. golden: the seed-locked mock pipeline of tests/test_golden_pipeline.py
    through the port's five entry points on the card, compared key by key
    with tests/golden/pipeline_mock.json;
@@ -42,7 +47,7 @@ on its own line:
    msa_library: both libraries on the card for the first segment of those
    groups, held to the JAX package's device-vs-host tolerances (the same
    pairs and (a, b) entries, identities within 1e-6, weights within one
-   quantum), then the device route on 40 groups of 2-10 reads on the card
+   quantum), then the device route on 20 groups of 2-10 reads on the card
    against ``device="cpu"`` with the segment budget pinned (table,
    identities and strings bit-equal);
 6. golden demux: tests/golden/barcode_demux.json through adaptor_align ->
@@ -58,7 +63,24 @@ on its own line:
    with the launch counts, then its outputs compared with the same calls on
    ``device="cpu"`` (tune_alignment on a 400-read slice: its plain CPU
    run at full size would take many minutes);
-9. umi: ``umi_group`` on three workloads from bench.py::bench_umi's
+9. mesh: every entry point that takes ``mesh=`` on ``make_mesh(4)`` (four
+   shards of ``cuda:0``) over the phase-5 batch: ``adaptor_align`` ->
+   ``umi_group`` (16 pre-groups by the UMI's first two bases, so
+   shuffle-by-pregroup runs) -> ``realize_reads`` -> ``multi_read_align`` ->
+   ``consensus_read_seq`` (the padded layout), then ``tune_alignment``,
+   ``get_adaptor_thresholds``, ``barcode_align`` (the demux barcodes on
+   20 000 observed reads) and ``extract_subseq`` (on calibration's
+   filtered frame); each output equal byte for byte to the same call
+   without a mesh, each stage timed both ways (the solo ``adaptor_align``,
+   ``tune_alignment``, ``get_adaptor_thresholds`` and ``extract_subseq``
+   are phases 5 and 8's own calls, made with the same arguments);
+10. distributed: two ranks (``torch.multiprocessing.spawn``, gloo, both on
+    ``cuda:0``) stream their byte ranges of the phase-5 reads from a
+    temporary FASTQ and score them with kernel C through
+    ``sharded_adaptor_scores`` on a mesh that spans them; rank 0 holds the
+    gathered scores and summed histograms to one process's, bit for bit;
+    300 s limit;
+11. umi: ``umi_group`` on three workloads from bench.py::bench_umi's
    generator (random centres, 30% of reads mutated by one base, one
    pre-group, seed 5): 100 000 10-bp UMIs at threshold 2 (the native
    filter path), 20 000 30-bp UMIs at threshold 2 and 20 000 20-bp UMIs at
@@ -66,7 +88,7 @@ on its own line:
    on a quarter, then timed with the scan's synchronised step time; for the
    two scan workloads the groups of a 2 500-UMI slice equal the same call
    on ``device="cpu"``;
-10. tools: every new kernel (the five kernel-C ablations, the four op-mix
+12. tools: every new kernel (the five kernel-C ablations, the four op-mix
     and five op-rate classes) against its plain version on the card, bit
     for bit (the chains at 4 iterations), ``full`` against kernel C and the
     profile's pure kernel C against ``dp_scores``; then the four
@@ -339,27 +361,166 @@ def phase_kernels(torch, st, batch, dev, max_pairs=4096):
         t(ca), t(cb), t(la, np.int32), t(lb, np.int32), t(lo, np.int32),
         t(hi - lo, np.int32), 0.0, -1.0, 5.0, 1.0, rows, W,
     )
-    rows_out += pair_rows(torch, {"pairs": bargs}, dev)
+    cases = {"pairs": bargs}
+    # The wide route: 128-256-bp reads against 4.0-4.6 kb ones at the
+    # default bandwidth (W = 8192), and against 31-32 kb ones at bandwidth
+    # 16 500 (W = 65 536, the widest bucket a legal input makes).
+    cases["wide@8192"] = wide_pair_args(torch, dev, 64, 256, (4000, 4600), 100, 8192, 5)
+    cases["wide@65536"] = wide_pair_args(torch, dev, 4, 256, (31000, 32000), 16500, 65536, 6)
+    rows_out += pair_rows(torch, cases, dev)
     return rows_out
 
 
-def record_pair_calls(torch):
-    """Wrap ``ops/msa.py``'s ``banded_pair`` so that the first call of each
-    distinct (P, rows, W) keeps a copy of its arguments.  Returns (calls,
-    undo)."""
-    import sarlacc_tpu_torch.ops.msa as msa
+def wide_pair_args(torch, dev, P, rows, lb_range, bw, W, seed):
+    """banded_pair arguments for P pairs whose A reads (``rows`` // 2 to
+    ``rows`` bases) sit, 80% kept, inside B reads of ``lb_range`` bases:
+    bands of |lb - la| + 2 ``bw`` + 1 cells, within ``W``."""
+    import numpy as np
 
-    orig = msa.banded_pair
-    calls = {}
+    rng = np.random.default_rng(seed)
+    LB = lb_range[1]
+    ca = rng.integers(0, 4, (P, rows)).astype(np.int8)
+    cb = rng.integers(0, 4, (P, LB)).astype(np.int8)
+    for p, off in enumerate(rng.integers(0, lb_range[0] - rows, P)):
+        keep = rng.random(rows) < 0.8
+        cb[p, off : off + rows] = np.where(keep, ca[p], cb[p, off : off + rows])
+    la = rng.integers(rows // 2, rows + 1, P)
+    lb = rng.integers(lb_range[0], LB + 1, P)
+    lo = np.minimum(0, lb - la) - bw
+    hi = np.maximum(0, lb - la) + bw
+    if int((hi - lo).max()) + 1 > W:
+        raise AssertionError(f"a band of {int((hi - lo).max()) + 1} cells exceeds W = {W}")
 
-    def recording(*args):
-        key = f"pipeline:P{int(args[0].shape[0])}xR{int(args[10])}xW{int(args[11])}"
-        if key not in calls:
-            calls[key] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
-        return orig(*args)
+    def t(a, dtype=None):
+        return torch.as_tensor(np.asarray(a, dtype), device=dev)
 
-    msa.banded_pair = recording
-    return calls, lambda: setattr(msa, "banded_pair", orig)
+    return (t(ca), t(cb), t(la, np.int32), t(lb, np.int32), t(lo, np.int32),
+            t(hi - lo, np.int32), 0.0, -1.0, 5.0, 1.0, rows, W)
+
+
+#: Each kernel's wrapper where the entry points reach it: key -> (module,
+#: name).  The module looks the wrapper up by name at each call.
+WRAPPERS = {
+    "A": ("sarlacc_tpu_torch.ops.cuda_align", "dir_kernel"),
+    "B": ("sarlacc_tpu_torch.ops.cuda_msa", "pair_kernel"),
+    "C": ("sarlacc_tpu_torch.ops.cuda_align", "score_kernel"),
+    "D": ("sarlacc_tpu_torch.ops.cuda_align", "segments_kernel"),
+}
+
+
+def call_shape(key, args, with_pairs=True) -> str:
+    """The launch shape of one call of kernel ``key``'s wrapper, as a row
+    name: what the kernel's plan and time depend on."""
+    if key == "B":
+        pairs = f"P{int(args[0].shape[0])}x" if with_pairs else ""
+        return f"{pairs}R{int(args[10])}xW{int(args[11])}"
+    if key == "D":  # modes, mask, segs, costm, costmm, codes_k, lens_k
+        l1, n_pad = args[5].shape
+        return f"nseg{len(args[2])}xR{int(args[0].shape[0])}xl1{l1}xN{n_pad}"
+    # A: modes, mask, go, ge, costm, costmm, codes_k, local;
+    # C: the same with lengths before local.
+    l1, n_pad = args[6].shape
+    n, local = (n_pad, args[7]) if key == "A" else (int(args[7].shape[0]), args[8])
+    return f"R{int(args[0].shape[0])}xl1{l1}xN{n}:{'fitting' if local else 'global'}"
+
+
+def record_calls(torch, path, keys="ABCD", per_width=False):
+    """Wrap the wrappers of kernels ``keys`` so that the first call of each
+    distinct launch shape keeps a copy of its arguments, named
+    ``path:shape``; with ``per_width``, kernel B keeps one call for each
+    (rows, W) only.  Returns ({name: (key, arguments)}, undo)."""
+    import importlib
+
+    calls, seen, undo = {}, set(), []
+    for key in keys:
+        mod_name, attr = WRAPPERS[key]
+        owner = importlib.import_module(mod_name)
+        orig = getattr(owner, attr)
+
+        def recording(*args, _key=key, _orig=orig):
+            sig = (_key, call_shape(_key, args, not per_width))
+            if sig not in seen:
+                seen.add(sig)
+                calls[f"{path}:{call_shape(_key, args)}"] = (
+                    _key, tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            return _orig(*args)
+
+        setattr(owner, attr, recording)
+        undo.append((owner, attr, orig))
+
+    def restore():
+        for owner, attr, orig in undo:
+            setattr(owner, attr, orig)
+
+    return calls, restore
+
+
+def replay_rows(torch, calls, dev):
+    """Each recorded call (:func:`record_calls`) once more on the card,
+    against its plain version on the same arguments (directions and scores
+    equal, tolerance 0), with CUDA-event times and the bound: the kernels
+    at the shapes a path launched them.  Kernel B's calls go through
+    :func:`pair_rows`."""
+    from sarlacc_tpu_torch.ops.align import dp_align, dp_scores, dp_scores_segments
+    from sarlacc_tpu_torch.ops.cuda_align import (
+        dir_kernel, dir_kernel_resources, dir_plan, score_kernel, score_kernel_resources,
+        score_tile, segments_kernel,
+    )
+
+    res = {**dir_kernel_resources(), **score_kernel_resources()}
+    rows_out, pairs = [], {}
+    for name, (key, args) in calls.items():
+        args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+        if key == "B":
+            pairs[name] = args
+            continue
+        if key == "A":
+            modes, mask, *_, codes_k, local = args
+            l1, n_pad = codes_k.shape
+            S_k, D_k = dir_kernel(*args)
+            (S_p, D_p), plain_ms = timed_once(torch, lambda: dp_align(*args))
+            err = compare(torch, f"kernel A ({name})", D_k, D_p, S_k, S_p)
+            ms = event_ms(lambda: dir_kernel(*args), 5, dev)
+            cells = int(modes.shape[0]) * l1 * n_pad  # every row of every lane
+            bms, by = bound(score_bytes(modes, mask, l1 * n_pad, S_k, D_k),
+                            cells * OPS_PER_CELL["A"])
+            tj, G, passes = dir_plan(int(modes.shape[0]), bool(local), n_pad)
+            extra = dict(tile=tj, lanes=G, passes=passes)
+            detail = f"dirs equal; tile {tj}, {G} lanes a read, {passes} pass(es)"
+            del S_k, D_k, S_p, D_p
+        elif key == "C":
+            modes, mask, go, ge, costm, costmm, codes_k, lengths, local = args
+            n = int(lengths.shape[0])
+            idx = lengths.to(torch.int64)[None, :]
+            want, plain_ms = timed_once(torch, lambda: dp_scores(
+                modes, mask, go, ge, costm, costmm, codes_k, local)[:, :n].gather(0, idx)[0])
+            err = equal_scores(torch, f"kernel C ({name})", score_kernel(*args), want)
+            ms = event_ms(lambda: score_kernel(*args), 5, dev)
+            rws = float((lengths.double() + 1).sum())
+            cells = rws * int(modes.shape[0])
+            bms, by = bound(score_bytes(modes, mask, rws, lengths) + 4 * n,
+                            cells * OPS_PER_CELL["C"])
+            tj = score_tile([(0, int(modes.shape[0]), bool(local))])
+            extra, detail = dict(tile=tj), f"scores equal; tile {tj}"
+        else:
+            modes, mask, segs, *_, lens_k = args
+            want, plain_ms = timed_once(torch, lambda: dp_scores_segments(*args))
+            err = equal_scores(torch, f"kernel D ({name})", segments_kernel(*args), want)
+            ms = event_ms(lambda: segments_kernel(*args), 5, dev)
+            rws = float((lens_k.double() + 1).sum())
+            cells = rws * sum(r for _, r, *_ in segs)
+            bms, by = bound(score_bytes(modes, mask, rws, lens_k) + 4 * len(segs) * lens_k.numel(),
+                            cells * OPS_PER_CELL["D"])
+            tj = score_tile(segs)
+            extra, detail = dict(tile=tj), f"scores equal; tile {tj}"
+        r = res[f"{key}@{tj}"]
+        log(f"[kernels] {key} {name}: {detail}, max|dS|={err}, kernel {ms:.3f} ms = "
+            f"{cells / ms / 1e6:.1f} GCUPS, plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, "
+            f"{100 * bms / ms:.1f}%); {r['registers']} registers, {r['spill_bytes']} B spilled")
+        rows_out.append(dict(key=key, name=name, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=by, gcups=cells / ms / 1e6, registers=r["registers"],
+                             spill_bytes=r["spill_bytes"], **extra))
+    return rows_out + (pair_rows(torch, pairs, dev) if pairs else [])
 
 
 def pair_rows(torch, cases, dev):
@@ -723,11 +884,12 @@ def phase_pipeline(torch, st, batch, kernels, required, dev):
     (the default, device-library route), then ``multi_read_align`` once
     more on the timed pass's reads and groups with ``SARLACC_HOST_LIB=1``,
     timed, then again with the step timers.  Returns (launch counts, the
-    aligned frame, {shape: banded_pair arguments}, realized reads, groups)."""
+    aligned frame, the timed pass's stage seconds, {shape: banded_pair
+    arguments}, realized reads, groups)."""
     from sarlacc_tpu_torch.utils import PipelineProfiler, get_profiler, set_profiler
 
     set_profiler(PipelineProfiler())
-    pair_calls, unrecord = record_pair_calls(torch)
+    recorded, unrecord = record_calls(torch, "pipeline", "B")
     totals, restore = timed_steps(torch)
     try:
         t0 = time.perf_counter()
@@ -736,6 +898,7 @@ def phase_pipeline(torch, st, batch, kernels, required, dev):
     finally:
         restore()
         unrecord()
+    pair_calls = {name: args for name, (_, args) in recorded.items()}
     log(f"[pipeline] warm-up pass {warm_s:.3f} s; synchronized step times: "
         f"{step_report(totals)}; kernel-B shapes {sorted(pair_calls)}")
     log("[pipeline] stage profiler after the warm-up pass:\n" + get_profiler().report())
@@ -790,10 +953,10 @@ def phase_pipeline(torch, st, batch, kernels, required, dev):
         restore()
     log(f"[pipeline] SARLACC_HOST_LIB=1 route with synchronized step times: "
         f"{step_report(totals)}")
-    return counts, aligned, pair_calls, reads, filt
+    return counts, aligned, stages, pair_calls, reads, filt
 
 
-def phase_msa_library(torch, st, reads, filt, dev, n_slice=40):
+def phase_msa_library(torch, st, reads, filt, dev, n_slice=20):
     """Both libraries on the card for the first segment of the pipeline's
     groups (the same pairs, (a, b) entries and identities within 1e-6,
     weights within one quantum: the JAX package's own device-vs-host
@@ -980,7 +1143,8 @@ def phase_demux(torch, st, demux, kernels, dev):
 
 def phase_calibration(torch, st, batch, aligned, kernels, dev):
     """The calibration entry points on the card, timed, each compared with
-    the same call on the CPU (plain versions); tolerance 0."""
+    the same call on the CPU (plain versions); tolerance 0.  Returns (launch
+    counts, the timed pass's outputs by entry point, its seconds)."""
     import numpy as np
 
     def timed(name, fn, out):
@@ -1078,7 +1242,9 @@ def phase_calibration(torch, st, batch, aligned, kernels, dev):
         f"quality_align {len(queries)} reads x R={len(ref)}; launches {counts}")
     log(f"[calibration] equal to device='cpu' (tolerance 0; tune_alignment on 400 "
         f"reads, picked {t_cpu['parameters']}); CPU comparison {cpu_s:.1f} s")
-    return counts
+    outputs = {"tune_alignment": tuned, "get_adaptor_thresholds": thr, "filter_reads": filt,
+               "extract_subseq": ext}
+    return counts, outputs, secs
 
 
 def umi_batch(n, umi_len, n_clusters, seed=5):
@@ -1232,6 +1398,231 @@ def phase_tools(torch, dev):
     return checks, counts, results
 
 
+def same_outputs(what, a, b) -> None:
+    """Outputs equal byte for byte: frames and dicts key by key, batches by
+    their strings, arrays exactly (NaN equal to NaN)."""
+    import numpy as np
+
+    if hasattr(a, "colnames"):
+        if a.colnames != b.colnames or a.rownames != b.rownames:
+            raise AssertionError(f"mesh: {what} has other columns or rows than the solo call")
+        for c in a.colnames:
+            same_outputs(f"{what}.{c}", a[c], b[c])
+    elif hasattr(a, "seq_strings"):
+        if a.seq_strings() != b.seq_strings() or a.qual_strings() != b.qual_strings():
+            raise AssertionError(f"mesh: {what} strings differ from the solo call")
+    elif isinstance(a, dict):
+        for k in b:
+            same_outputs(f"{what}.{k}", a[k], b[k])
+    elif isinstance(a, list) and a and isinstance(a[0], np.ndarray):
+        if len(a) != len(b) or not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"mesh: {what} differs from the solo call")
+    elif isinstance(a, np.ndarray):
+        if not np.array_equal(a, np.asarray(b), equal_nan=a.dtype.kind == "f"):
+            raise AssertionError(f"mesh: {what} differs from the solo call")
+    elif a != b:
+        raise AssertionError(f"mesh: {what} differs from the solo call ({a!r} vs {b!r})")
+
+
+def mesh_stages(torch, st, batch, observed, barcodes, filt, aligned=None, **kw):
+    """The entry points that take ``mesh=``, each timed (host clock around
+    work that ends in a synchronise), with ``kw`` (a mesh, or the device)
+    passed to each.  Given the solo ``aligned`` frame, only the stages the
+    pre-groups change (``umi_group`` to ``consensus_read_seq``) and
+    ``barcode_align`` run: the pipeline and calibration phases made the
+    other solo calls with the same arguments."""
+    out, secs = {}, {}
+    dev_kw = {"device": kw["device"]} if "device" in kw else {"device": kw["mesh"].devices[0]}
+    full = aligned is None
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+
+    if full:
+        run("adaptor_align", lambda: st.adaptor_align(
+            ADAPTOR1_BENCH, ADAPTOR2, reads=batch, tolerance=250, **kw))
+        aligned = out["adaptor_align"]
+    umis = aligned["adaptor1"]["subseq"]["Sub2"]
+    # 16 pre-groups keyed by the UMI's first two bases: a molecule's reads
+    # mostly share a key, so the families survive the pre-grouping.
+    pre = (umis.codes[:, 0] % 4) * 4 + umis.codes[:, 1] % 4
+    run("umi_group", lambda: st.umi_group(umis, threshold1=2, groups=pre, **kw))
+    fams = [g for g in out["umi_group"] if len(g) >= 2]
+    run("realize_reads", lambda: st.realize_reads(aligned, reads=batch, trim=False, **dev_kw))
+    run("multi_read_align", lambda: st.multi_read_align(
+        out["realize_reads"], groups=fams, bandwidth=100, **kw))
+    run("consensus_read_seq", lambda: st.consensus_read_seq(out["multi_read_align"], **kw))
+    run("barcode_align", lambda: st.barcode_align(observed, barcodes, **kw))
+    if full:
+        run("tune_alignment", lambda: st.tune_alignment(
+            ADAPTOR1_BENCH, ADAPTOR2, reads=batch, tolerance=250, **kw))
+        run("get_adaptor_thresholds", lambda: st.get_adaptor_thresholds(
+            aligned, reads=batch, **kw))
+        run("extract_subseq", lambda: st.extract_subseq(
+            filt, ([16, 31], [19, 42]), ([1], [14]), reads=batch, **kw))
+    return out, secs
+
+
+#: The mesh phase's stages whose solo call an earlier phase made with the
+#: same arguments: stage -> phase.
+SOLO_FROM = {"adaptor_align": "pipeline", "tune_alignment": "calibration",
+             "get_adaptor_thresholds": "calibration", "extract_subseq": "calibration"}
+
+
+def phase_mesh(torch, st, batch, demux, kernels, dev, smi, earlier, earlier_s):
+    """Every entry point that takes ``mesh=`` on four shards of the one card
+    (``make_mesh(4)``), against the same calls without a mesh: outputs
+    equal byte for byte, the histograms' sums the read count.  The solo
+    outputs and seconds of :data:`SOLO_FROM`'s stages are ``earlier`` and
+    ``earlier_s`` (the pipeline's timed pass and calibration's); the rest
+    run here.  Launch counts are those of the mesh calls alone, and each
+    kernel call of the mesh run is recorded for :func:`replay_rows`.
+    Returns (counts, recorded calls)."""
+    import numpy as np
+
+    from sarlacc_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(4)
+    if mesh.devices != (torch.device("cuda", 0),) * 4:
+        raise AssertionError(f"make_mesh(4) on one card gave {mesh.devices}")
+    observed = demux["observed"].take(np.arange(20_000))
+    args = (torch, st, batch, observed, demux["barcodes"], earlier["filter_reads"])
+    solo, solo_s = mesh_stages(*args, aligned=earlier["adaptor_align"], device=dev)
+    solo.update({k: earlier[k] for k in SOLO_FROM})
+    solo_s.update({k: earlier_s[k] for k in SOLO_FROM})
+    reset(kernels)
+    calls, unrecord = record_calls(torch, "mesh", per_width=True)
+    try:
+        meshed, mesh_s = mesh_stages(*args, mesh=mesh)
+    finally:
+        unrecord()
+    counts = read_counts(kernels)
+    for name in meshed:
+        same_outputs(name, meshed[name], solo[name])
+    thr = meshed["get_adaptor_thresholds"]
+    for key in ("histogram1", "histogram2"):
+        if int(thr[key].sum()) != len(batch):
+            raise AssertionError(f"mesh: {key} sums to {int(thr[key].sum())}, not {len(batch)}")
+    if min(counts[k.symbol] for k in kernels) == 0:
+        raise AssertionError(f"a kernel never launched in the mesh run: {counts}")
+    log(f"[mesh] {len(batch)} reads on make_mesh(4) (4 shards of cuda:0), every output equal "
+        f"to the solo call's; histograms sum to {len(batch)}; card {smi}; seconds mesh / solo: "
+        + ", ".join(f"{k} {mesh_s[k]:.3f} / {solo_s[k]:.3f}"
+                    + (f" ({SOLO_FROM[k]} phase)" if k in SOLO_FROM else "") for k in meshed)
+        + f"; launches {counts}; {len(calls)} launch shapes recorded")
+    return counts, calls
+
+
+def dist_rank(rank, rendezvous, fastq, out_dir):
+    """One of the distributed phase's two ranks (gloo, both on cuda:0)."""
+    import numpy as np
+    import torch
+
+    from sarlacc_tpu_torch.api.align_internal import prepare_adaptor
+    from sarlacc_tpu_torch.core.encode import SeqBatch
+    from sarlacc_tpu_torch.io.fastq import read_fastq, stream_fastq
+    from sarlacc_tpu_torch.ops.align import prepare_reads
+    from sarlacc_tpu_torch.ops.cuda_align import SCORE_KERNEL
+    from sarlacc_tpu_torch.parallel import (
+        global_mesh, host_shard, init_distributed, make_mesh, sharded_adaptor_scores,
+    )
+    from sarlacc_tpu_torch.parallel.distributed import all_gather_rows
+
+    init_distributed(rendezvous, 2, rank, backend="gloo")
+    try:
+        dev = torch.device("cuda")
+        mesh = global_mesh(device=dev)
+        a1 = prepare_adaptor(ADAPTOR1_BENCH, device=dev)
+        a2 = prepare_adaptor(ADAPTOR2, device=dev)
+        preps = [(a.modes, a.matched, a.match_tab, a.mismatch_tab) for a in (a1, a2)]
+
+        def scores(m, batch):
+            front, back = batch.front_and_back(250)
+            return sharded_adaptor_scores(m, prepare_reads(front, a1.tables, device=dev),
+                                          prepare_reads(back, a1.tables, device=dev),
+                                          *preps, 5.0, 1.0)
+
+        batch = SeqBatch.concat(list(stream_fastq(fastq, shard=host_shard())))
+        SCORE_KERNEL.launches = 0
+        calls, unrecord = record_calls(torch, "distributed", "C") if rank == 0 else ({}, None)
+        try:
+            t0 = time.perf_counter()
+            s1, s2, rev, h1, h2 = scores(mesh, batch)
+            h1.cpu()  # a synchronise
+            elapsed = time.perf_counter() - t0
+        finally:
+            if unrecord is not None:
+                unrecord()
+        launches = SCORE_KERNEL.launches
+        got = [all_gather_rows(x) for x in (s1, s2, rev)]
+        out = {"rank": rank, "n_local": len(batch), "launches": launches, "seconds": elapsed}
+        if rank == 0:
+            whole = read_fastq(fastq)
+            want = scores(make_mesh(1, device=dev), whole)
+            for name, g, w in zip(("score1", "score2", "reversed"), got, want):
+                if not torch.equal(g.cpu(), w.cpu()):
+                    raise AssertionError(f"distributed: gathered {name} differs from one process")
+            for name, g, w in (("histogram1", h1, want[3]), ("histogram2", h2, want[4])):
+                if not torch.equal(g.cpu(), w.cpu()) or int(g.sum()) != len(whole):
+                    raise AssertionError(f"distributed: {name} differs from one process")
+            out.update(n_total=len(whole), hist1=h1.cpu().tolist())
+            torch.save({name: (key, tuple(a.cpu() if torch.is_tensor(a) else a for a in args))
+                        for name, (key, args) in calls.items()},
+                       os.path.join(out_dir, "calls.pt"))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_distributed(torch, st, batch, kernel_c, limit_s=300.0):
+    """Two real ranks (torch.multiprocessing.spawn, gloo, both on cuda:0)
+    stream their byte ranges of the bench reads and score them with kernel
+    C through ``sharded_adaptor_scores`` on a mesh that spans them; rank 0
+    holds the gathered scores and summed histograms to one process's, bit
+    for bit, and keeps its kernel-C calls (:func:`record_calls`).  Fails
+    when a rank fails or ``limit_s`` passes.  Returns (counts, rank 0's
+    recorded calls)."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fq = os.path.join(tmp, "bench.fastq")
+        from sarlacc_tpu_torch.io.fastq import write_fastq
+
+        write_fastq(fq, batch)
+        t0 = time.perf_counter()
+        ctx = mp.spawn(dist_rank, args=(f"file://{os.path.join(tmp, 'rendezvous')}", fq, tmp),
+                       nprocs=2, join=False)
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > limit_s:
+                    raise AssertionError(f"distributed: the ranks did not finish in {limit_s} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        wall = time.perf_counter() - t0
+        res = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(2)]
+        calls = torch.load(os.path.join(tmp, "calls.pt"))
+    launches = sum(r["launches"] for r in res)
+    if min(r["launches"] for r in res) == 0:
+        raise AssertionError(f"kernel C never launched on a rank: {res}")
+    log(f"[distributed] 2 ranks (gloo, both on cuda:0): {res[0]['n_local']} + {res[1]['n_local']} "
+        f"of {res[0]['n_total']} reads; gathered scores and summed histograms equal one "
+        f"process's bit for bit; sharded_adaptor_scores {res[0]['seconds']:.3f} / "
+        f"{res[1]['seconds']:.3f} s; kernel-C launches {[r['launches'] for r in res]}; "
+        f"phase {wall:.1f} s (spawn, CUDA start-up and the check included); "
+        f"histogram1 {np.asarray(res[0]['hist1']).tolist()}; {len(calls)} launch shapes "
+        f"recorded on rank 0")
+    return {kernel_c.symbol: launches}, calls
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -1273,7 +1664,7 @@ def main(argv=None) -> int:
     krows += phase_score_kernels(torch, st, demux, bench, dev)
     # Each path runs with every count at 0 and reports all four kernels.
     by_path = {"golden": phase_golden(torch, st, kernels, (DIR_KERNEL, PAIR_KERNEL), dev)}
-    by_path["pipeline"], aligned, pair_calls, reads, filt = phase_pipeline(
+    by_path["pipeline"], aligned, stages, pair_calls, reads, filt = phase_pipeline(
         torch, st, bench, kernels, (DIR_KERNEL, PAIR_KERNEL), dev)
     krows += pair_rows(torch, pair_calls, dev)  # kernel B at the pipeline's own shapes
     if save_pair_shapes:
@@ -1284,8 +1675,16 @@ def main(argv=None) -> int:
     del reads, filt
     by_path["golden_demux"] = phase_golden_demux(torch, st, kernels, SEGMENTS_KERNEL, dev)
     by_path["demux"] = phase_demux(torch, st, demux, kernels, dev)
-    by_path["calibration"] = phase_calibration(torch, st, bench, aligned, kernels, dev)
-    del bench, aligned, demux
+    by_path["calibration"], solo, solo_s = phase_calibration(
+        torch, st, bench, aligned, kernels, dev)
+    # The mesh and distributed paths' kernels at their own launch shapes.
+    by_path["mesh"], calls = phase_mesh(
+        torch, st, bench, demux, kernels, dev, smi,
+        {**solo, "adaptor_align": aligned}, {**solo_s, "adaptor_align": stages["adaptor_align"]})
+    krows += replay_rows(torch, calls, dev)
+    by_path["distributed"], calls = phase_distributed(torch, st, bench, SCORE_KERNEL)
+    krows += replay_rows(torch, calls, dev)
+    del bench, aligned, demux, solo, calls
     reset(kernels)
     phase_umi(torch, st, dev)
     by_path["umi"] = read_counts(kernels)
@@ -1293,7 +1692,8 @@ def main(argv=None) -> int:
     by_path["tools"] = {k.symbol: tool_counts.get(k.symbol, 0) for k in kernels}
 
     def path_launches(symbol):
-        each = {path: c[symbol] for path, c in by_path.items() if c.get(symbol)}
+        each = {path: c.get(symbol, 0) for path, c in by_path.items()
+                if c.get(symbol) or path in ("mesh", "distributed")}
         return sum(each.values()), each
 
     replaces = {
@@ -1306,8 +1706,10 @@ def main(argv=None) -> int:
     for r in krows:
         kern, repl = replaces[r["key"]]
         launches, each = path_launches(kern.symbol)
-        extra = {k: r[k] for k in ("gcups", "tile", "lanes", "passes", "route", "block_ms",
+        extra = {k: r[k] for k in ("gcups", "tile", "lanes", "passes", "block_ms",
                                    "registers", "spill_bytes", "achieved_occupancy") if k in r}
+        if "route" in r:  # kernel B's route within its CUDA source; "route" names the language
+            extra["pair_route"] = r["route"]
         report.append({
             "name": f"{kern.symbol.removeprefix('sarlacc_')}[{r['name']}]",
             "route": "cuda",

@@ -7,7 +7,8 @@ and adaptor2 in both orientations — one kernel-A launch per adaptor on the
 stacked front+back batch — the strand is resolved by clamped combined
 score, rows swap into canonical orientation, and adaptor2 coordinates flip
 onto the forward strand.  Every read is aligned independently, so the
-output does not depend on the chunk size.
+output does not depend on the chunk size, nor on a ``mesh`` splitting each
+launch's rows over shards.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 
 from ..core.encode import SeqBatch
 from ..core.frame import Frame
-from ..device import resolve_device
+from ..parallel.context import mesh_device
 from ..io.fastq import stream_fastq
 from .align_internal import align_and_extract, prepare_adaptor, resolve_strand
 
@@ -36,13 +37,16 @@ def adaptor_align(
     qual_type: str = "phred",
     number: int = 100_000,
     device=None,
+    mesh=None,
 ) -> Frame:
     """Align adaptors to read ends and standardize read orientation.
 
     Either ``filepath`` (streamed, R/adaptorAlign.R:26-36) or an in-memory
-    ``reads`` batch must be given.  ``device=None`` means CUDA.
+    ``reads`` batch must be given.  ``device=None`` means CUDA.  A ``mesh``
+    (:func:`..parallel.make_mesh`, the BPPARAM analog) splits each launch's
+    rows over its shards; the devices then come from the mesh.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     if qual_type not in QUAL_TYPES:
         raise ValueError(f"qual_type must be one of {QUAL_TYPES}")
     adaptor1 = adaptor1.upper()
@@ -80,10 +84,10 @@ def adaptor_align(
 
         # Both orientations of one adaptor share the reference: ONE launch.
         res1 = align_and_extract(
-            a1, SeqBatch.concat([front, back]), gap_opening, gap_extension
+            a1, SeqBatch.concat([front, back]), gap_opening, gap_extension, mesh=mesh
         )
         res2 = align_and_extract(
-            a2, SeqBatch.concat([back, front]), gap_opening, gap_extension
+            a2, SeqBatch.concat([back, front]), gap_opening, gap_extension, mesh=mesh
         )
         lo = np.arange(nb)
         hi = np.arange(nb, 2 * nb)
@@ -126,6 +130,7 @@ def adaptor_align(
             gap_extension=gap_extension,
             qual_type=qual_type,
             device=dev,
+            mesh=mesh,
         )
 
     align_start = Frame.rbind(starts_parts)

@@ -3,7 +3,8 @@
 Counterpart of ``sarlacc_tpu/api/barcode.py`` (R/barcodeAlign.R +
 src/barcode_align.cpp): every observed barcode subsequence is **globally**
 aligned (quality-aware) against each reference barcode in one kernel-D
-launch; best and second-best scores give the assignment and its gap.
+launch (one a shard under a ``mesh``); best and second-best scores give the
+assignment and its gap.
 Thresholds are median − nmads·MAD (R/getBarcodeThresholds.R).
 """
 
@@ -15,6 +16,7 @@ import torch
 from ..core.encode import SeqBatch
 from ..core.frame import Frame
 from ..device import resolve_device
+from ..parallel.context import mesh_device
 from ..ops.cuda_align import fit_scores_segments
 from .align_internal import prepare_adaptor, prepare_scores_input
 
@@ -28,6 +30,7 @@ def barcode_align(
     gap_extension: float = 1,
     qual_type: str = "phred",
     device=None,
+    mesh=None,
 ) -> Frame:
     """Assign each sequence to its best-scoring barcode.
 
@@ -35,9 +38,10 @@ def barcode_align(
     of the winner (the reference reports 1-based), ``gap`` the margin over the
     runner-up; metadata carries penalties and the barcode list.  One barcode
     gives ``gap = +inf``; no barcodes give id -1, score ``-inf`` and gap
-    ``nan``.  ``device=None`` means CUDA.
+    ``nan``.  ``device=None`` means CUDA; a ``mesh`` splits the sequences
+    over its shards, each scored against every barcode on its device.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     n = len(sequences)
     current_score = np.full(n, -np.inf)
     next_best = np.full(n, -np.inf)
@@ -48,15 +52,12 @@ def barcode_align(
         # One upload and one plane build for every barcode (the quality
         # table is per qual_type, not per barcode), one launch, and a
         # device-side best/second-best so three [n] vectors come back.
-        prepared = prepare_scores_input(preps[0], sequences)
-        l1, n_pad = prepared.plane_geometry()
-        stack = fit_scores_segments(
-            prepared.planes(),
-            prepared.lengths,
-            [(p.modes, p.matched, gap_opening, gap_extension, False) for p in preps],
-            l1,
-            n_pad,
-        )[:, :n].to(torch.float64)  # [B, n]
+        prepared = prepare_scores_input(preps[0], sequences, mesh=mesh)
+        segs = [(p.modes, p.matched, gap_opening, gap_extension, False) for p in preps]
+        stack = torch.cat([
+            fit_scores_segments(part.planes(), part.lengths, segs, *part.plane_geometry())
+            [:, : part.n].to(dev) for part in prepared.parts()
+        ], dim=1).to(torch.float64)  # [B, n]
         # The first maximum wins ties, as the sequential
         # `scores > current_score` walk did (R/barcodeAlign.R:27-38).
         best_id = torch.argmax(stack, dim=0)

@@ -3,8 +3,9 @@
 Counterpart of ``sarlacc_tpu/api/extract.py`` (R/extractSubseq.R): the
 pipeline stores only coordinates, so arbitrary subsequences require
 realignment, but only in the known orientation (half the work of
-``adaptor_align``): one kernel-A launch per adaptor.  Realigned scores are
-checked against the stored ones as a consistency guard (:59-74).
+``adaptor_align``): one kernel-A launch per adaptor, or one a shard under
+a ``mesh``.  Realigned scores are checked against the stored ones as a
+consistency guard (:59-74).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import numpy as np
 
 from ..core.encode import SeqBatch
 from ..core.frame import Frame
-from ..device import resolve_device
+from ..parallel.context import mesh_device
 from ..io.fastq import stream_fastq
 from .align_internal import align_and_extract, prepare_adaptor
 
@@ -47,15 +48,17 @@ def extract_subseq(
     number: int = 100_000,
     reads: SeqBatch | None = None,
     device=None,
+    mesh=None,
 ) -> dict:
     """Extract adaptor-coordinate subsequences (1-based inclusive ranges).
 
     ``subseq1``/``subseq2`` are (starts, ends) lists of adaptor positions; at
     least one must be given.  Returns a dict with 'adaptor1' / 'adaptor2'
     Frames of extracted subsequence batches.  Raises ``ValueError`` when a
-    realigned score differs from the stored one.  ``device=None`` means CUDA.
+    realigned score differs from the stored one.  ``device=None`` means CUDA;
+    a ``mesh`` splits the realignment's rows over its shards.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     if subseq1 is None and subseq2 is None:
         raise ValueError("at least one of subseq1 or subseq2 must be specified")
 
@@ -100,7 +103,7 @@ def extract_subseq(
         prep = prepare_adaptor(ameta["sequence"], qual_type, device=dev)
         prep.sec_starts = [int(s) for s in sections[0]]
         prep.sec_ends = [int(e) for e in sections[1]]
-        res = align_and_extract(prep, batch, go, ge)
+        res = align_and_extract(prep, batch, go, ge, mesh=mesh)
         stored_scores = np.asarray(stored["score"], dtype=np.float64)[m]
         if not np.allclose(res["score"], stored_scores, rtol=1.5e-8, atol=1.5e-8):
             raise ValueError(f"score mismatch from 'aligned' for {key}")

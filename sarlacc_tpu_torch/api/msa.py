@@ -35,7 +35,7 @@ import torch
 
 from ..core.encode import SeqBatch
 from ..core.frame import Frame
-from ..device import memory_budget, resolve_device
+from ..device import memory_budget
 from ..native import triplet_extend_native
 from ..ops.msa import (
     ARENA_IDENT_ROW,
@@ -46,6 +46,7 @@ from ..ops.msa import (
     merge_wave_from_library,
     pair_maps_device,
 )
+from ..parallel.context import mesh_device, use_mesh
 from ..refimpl.masking import unmask_alignment
 from ..utils.profiling import profiled, profiler
 from .umi import quality_mask
@@ -694,14 +695,18 @@ def multi_read_align(
     keep_mask: bool = False,
     qual_type: str = "phred",
     device=None,
+    mesh=None,
 ) -> Frame:
     """MSA per read group; returns Frame(alignments=List, qualities=List).
 
     ``device=None`` means CUDA.  The library is built on the device unless
     ``SARLACC_HOST_LIB`` is set in the environment or a segment is too large
-    for it (:func:`_device_lib_ok`), as in the JAX package.
+    for it (:func:`_device_lib_ok`), as in the JAX package.  A ``mesh``
+    (BPPARAM analog, R/multiReadAlign.R:7) splits each kernel-B launch's
+    pairs over its shards; segments, merge waves and the host work run as
+    without it, on the first shard's device, so the results are the same.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     n = len(reads)
     by_group, names = _split_groups(n, groups)
 
@@ -725,17 +730,18 @@ def multi_read_align(
         codes = reads.codes
     lengths = reads.lengths
 
-    alignments = _msa_groups(
-        codes,
-        lengths,
-        by_group,
-        float(match),
-        float(mismatch),
-        float(gap_opening),
-        float(gap_extension),
-        int(bandwidth),
-        dev,
-    )
+    with use_mesh(mesh):
+        alignments = _msa_groups(
+            codes,
+            lengths,
+            by_group,
+            float(match),
+            float(mismatch),
+            float(gap_opening),
+            float(gap_extension),
+            int(bandwidth),
+            dev,
+        )
     if use_mask and not keep_mask:
         dec = np.frombuffer(b"ACGTN-", dtype=np.uint8)
         for gi, idx in enumerate(by_group):

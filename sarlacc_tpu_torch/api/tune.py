@@ -7,16 +7,20 @@ alignment scores, and the adaptor score thresholds are the smallest real
 scores whose scramble-estimated FDR falls below ``error``.  Both run on the
 score-only path: the grid takes two kernel-D launches per batch (one for
 the real reads, one for the scrambles), the thresholds one kernel-C launch
-per adaptor.
+per adaptor.  A ``mesh`` splits the batches over its shards: the grid runs
+kernel D on each shard's rows, and the thresholds run through
+:func:`..parallel.mesh.sharded_adaptor_scores`, whose summed histograms
+come back under ``histogram1``/``histogram2``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.encode import SeqBatch
 from ..core.frame import Frame
-from ..device import resolve_device
+from ..parallel.context import mesh_device
 from ..io.fastq import sample_fastq, stream_fastq
 from ..ops.cuda_align import fit_scores_segments
 from .align_internal import (
@@ -55,11 +59,11 @@ def scramble_input(batch: SeqBatch, rng: np.random.Generator) -> SeqBatch:
     return SeqBatch(codes, batch.lengths.copy(), quals, batch.names)
 
 
-def _prep_four(a1, front, back):
+def _prep_four(a1, front, back, mesh=None):
     """One upload of each stacked orientation batch: front+back, back+front."""
     return (
-        prepare_scores_input(a1, SeqBatch.concat([front, back])),
-        prepare_scores_input(a1, SeqBatch.concat([back, front])),
+        prepare_scores_input(a1, SeqBatch.concat([front, back]), mesh),
+        prepare_scores_input(a1, SeqBatch.concat([back, front]), mesh),
         len(front),
     )
 
@@ -83,17 +87,16 @@ def _grid_four_scores(a1, a2, combos, prep):
     """Every grid point's START/END/RSTART/REND vectors in TWO kernel-D
     launches, one per stacked batch (R/tuneAlignment.R:54-72)."""
     pfb, pbf, n = prep
-    l1, n_pad = pfb.plane_geometry()
-    s1 = fit_scores_segments(
-        pfb.planes(), pfb.lengths,
-        [(a1.modes, a1.matched, go, ge, True) for go, ge in combos],
-        l1, n_pad,
-    ).cpu().numpy().astype(np.float64)[:, : pfb.n]
-    s2 = fit_scores_segments(
-        pbf.planes(), pbf.lengths,
-        [(a2.modes, a2.matched, go, ge, True) for go, ge in combos],
-        l1, n_pad,
-    ).cpu().numpy().astype(np.float64)[:, : pbf.n]
+
+    def grid(prepared, ad):
+        segs = [(ad.modes, ad.matched, go, ge, True) for go, ge in combos]
+        return torch.cat([
+            fit_scores_segments(part.planes(), part.lengths, segs, *part.plane_geometry())
+            [:, : part.n].cpu() for part in prepared.parts()
+        ], dim=1).numpy().astype(np.float64)
+
+    s1 = grid(pfb, a1)
+    s2 = grid(pbf, a2)
     return [
         (s1[i, :n], s2[i, :n], s1[i, n:], s2[i, n:])
         for i in range(len(combos))
@@ -120,14 +123,15 @@ def tune_alignment(
     qual_type: str = "phred",
     seed: int = 0,
     device=None,
+    mesh=None,
 ) -> dict:
     """Grid-search integer gap penalties maximizing real/scrambled separation.
 
     Gap opening is the outer loop and a point replaces the best only when
     strictly better, so the first best point wins.  ``device=None`` means
-    CUDA.
+    CUDA; a ``mesh`` splits the reads over its shards.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     a1 = prepare_adaptor(adaptor1.upper(), qual_type, device=dev)
     a2 = prepare_adaptor(adaptor2.upper(), qual_type, device=dev)
 
@@ -154,8 +158,8 @@ def tune_alignment(
         for go in range(int(lo_op), int(hi_op) + 1)
         for ge in range(int(lo_ext), int(hi_ext) + 1)
     ]
-    rs_all = _grid_four_scores(a1, a2, combos, _prep_four(a1, front, back))
-    ss_all = _grid_four_scores(a1, a2, combos, _prep_four(a1, sfront, sback))
+    rs_all = _grid_four_scores(a1, a2, combos, _prep_four(a1, front, back, mesh))
+    ss_all = _grid_four_scores(a1, a2, combos, _prep_four(a1, sfront, sback, mesh))
 
     max_score = 0.0
     best = {"gapOpening": None, "gapExtension": None}
@@ -192,15 +196,19 @@ def get_adaptor_thresholds(
     reads: SeqBatch | None = None,
     seed: int = 0,
     device=None,
+    mesh=None,
 ) -> dict:
     """Scramble-FDR adaptor score thresholds (R/getAdaptorThresholds.R:6-64).
 
     The reads come from ``reads`` or are re-streamed from the FASTQ named in
     ``aligned``'s metadata; their scrambles are scored with kernel C, one
     launch per adaptor on the stacked orientations.  ``device=None`` means
-    CUDA.
+    CUDA.  With a ``mesh`` the scrambles are scored shard by shard through
+    :func:`..parallel.mesh.sharded_adaptor_scores`, whose summed 64-bin
+    score histograms come back under ``histogram1``/``histogram2``; the
+    thresholds use the exact scores, so they equal the solo run's.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     meta = aligned.metadata
     a1meta = aligned["adaptor1"].metadata
     a2meta = aligned["adaptor2"].metadata
@@ -230,16 +238,48 @@ def get_adaptor_thresholds(
     front, back = reads.front_and_back(tolerance)
     sfront = scramble_input(front, rng)
     sback = scramble_input(back, rng)
-    s_start, s_end, s_rstart, s_rend = _four_scores(a1, a2, sfront, sback, go, ge)
-    is_rev, _ = resolve_strand(s_start, s_end, s_rstart, s_rend)
-    scram1 = np.where(is_rev, s_rstart, s_start)
-    scram2 = np.where(is_rev, s_rend, s_end)
+    hist1 = hist2 = None
+    if mesh is not None:
+        scram1, scram2, hist1, hist2 = _sharded_scrambled_scores(
+            a1, a2, sfront, sback, go, ge, mesh
+        )
+    else:
+        s_start, s_end, s_rstart, s_rend = _four_scores(a1, a2, sfront, sback, go, ge)
+        is_rev, _ = resolve_strand(s_start, s_end, s_rstart, s_rend)
+        scram1 = np.where(is_rev, s_rstart, s_start)
+        scram2 = np.where(is_rev, s_rend, s_end)
 
     real1 = np.asarray(aligned["adaptor1"]["score"], dtype=np.float64)[m]
     real2 = np.asarray(aligned["adaptor2"]["score"], dtype=np.float64)[m]
-    return {
+    out = {
         "threshold1": compute_threshold(real1, scram1, error),
         "threshold2": compute_threshold(real2, scram2, error),
         "scores1": {"reads": real1, "scrambled": scram1},
         "scores2": {"reads": real2, "scrambled": scram2},
     }
+    if hist1 is not None:
+        out["histogram1"] = hist1
+        out["histogram2"] = hist2
+    return out
+
+
+def _sharded_scrambled_scores(a1, a2, sfront, sback, go, ge, mesh):
+    """Shard-parallel scrambled scores (float64) and summed histograms (int32)."""
+    from ..ops.align import prepare_reads
+    from ..parallel.mesh import sharded_adaptor_scores
+
+    s1, s2, _, h1, h2 = sharded_adaptor_scores(
+        mesh,
+        prepare_reads(sfront, a1.tables),
+        prepare_reads(sback, a1.tables),
+        (a1.modes, a1.matched, a1.match_tab, a1.mismatch_tab),
+        (a2.modes, a2.matched, a2.match_tab, a2.mismatch_tab),
+        float(go),
+        float(ge),
+    )
+    return (
+        s1.cpu().numpy().astype(np.float64),
+        s2.cpu().numpy().astype(np.float64),
+        h1.cpu().numpy(),
+        h2.cpu().numpy(),
+    )

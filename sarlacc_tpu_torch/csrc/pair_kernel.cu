@@ -7,7 +7,7 @@
 //
 // Band coordinates: DP cell (i, j) sits at k = j - i - lo, 0 <= k <= kmax.
 // A pair walks the rows in order, the band of W cells spread over its
-// threads, IT consecutive cells each.  Two routes, chosen by W in the
+// threads, IT consecutive cells each.  Three routes, chosen by W in the
 // wrapper (ops/cuda_msa.py::pair_route):
 //
 // Warp route (W 32-512, every band the pipeline's buckets give): one warp
@@ -33,6 +33,17 @@
 // row's S and V, this row's mv and H and the scan's warp maxima live in
 // shared memory, with four block barriers a row.
 //
+// Wide route (W 8192-65536, bands of reads that differ by kilobases): one
+// block of 256 threads a pair, W / 256 consecutive cells a thread, and the
+// band's rows (S and V of the previous row and of this one, this row's mv
+// and H) in the block's slice of a device scratch buffer, [grid, 6, W]
+// floats, since a 65 536-cell band's state does not fit in shared memory.
+// The blocks stride over the pairs.  Per row a thread makes three passes
+// over its cells: mv and the running maximum of B; after the block scan,
+// M, Vn, H, S and the choice (M and Vn again from the previous row, which
+// the pass does not overwrite); after a barrier, the horizontal-extend bit
+// from H and mv at k - 1.  Simple rather than fast.
+//
 // What bounds it: the ALU and the row's shuffle chain on the warp route.
 // Per cell ~21 counted float operations (substitution select, M, the
 // vertical gap, mv, B and its running max, the closed horizontal gap, the
@@ -43,7 +54,7 @@
 // at a few hundred pairs.  Direction bytes, rows x W per pair, are the only
 // large traffic: each row is one contiguous W-byte run in the [rows, P, W]
 // layout, written as one 1-16-byte store a lane.  No DP state goes to
-// device memory on either route.
+// device memory on the warp and block routes.
 //
 // Exactness: compile with --fmad=false so (mv - go) + k*ge,
 // -(go + (j-1)*ge) and cum - (k-1)*ge are not contracted into FMAs.  Max is
@@ -372,11 +383,168 @@ int launch(const int8_t* codes_a, int la_w, const int8_t* codes_b, int lb_w,
     return (int)cudaGetLastError();
 }
 
-// The kernel of a route (0 warp, 1 block) at band width W, or null; the
-// block route's threads at W.
+constexpr int WIDE_THREADS = 256;  // the wide route's block
+constexpr int WIDE_ROWS = 6;       // scratch rows a block: S, V, S', V', mv, H
+
+// The wide route: one block per pair (striding over the pairs), W /
+// WIDE_THREADS consecutive band cells a thread, the band's rows in
+// ``scratch`` (the block's [WIDE_ROWS, W] slice).
+__global__ void __launch_bounds__(WIDE_THREADS) pair_wide_kernel(
+    const int8_t* __restrict__ codes_a, int la_w,
+    const int8_t* __restrict__ codes_b, int lb_w,
+    const int32_t* __restrict__ lens_a, const int32_t* __restrict__ lens_b,
+    const int32_t* __restrict__ lo_p, const int32_t* __restrict__ kmax_p,
+    int P, int rows, int W, float mt, float mm, float go, float ge,
+    float* __restrict__ scratch, int8_t* __restrict__ dirs, float* __restrict__ scores)
+{
+    __shared__ float sWarp[32];
+    const int t = threadIdx.x;
+    const int lane = t & 31;
+    const int warp = t >> 5;
+    const int nwarps = blockDim.x >> 5;
+    const int cells = W / blockDim.x;
+    const int k0 = t * cells;
+    float* const slice = scratch + (size_t)blockIdx.x * WIDE_ROWS * W;
+    float* const sMV = slice + 4 * (size_t)W;
+    float* const sH = slice + 5 * (size_t)W;
+
+    for (int p = blockIdx.x; p < P; p += gridDim.x) {
+        float* sS = slice;          // previous row's S
+        float* sV = slice + W;      // previous row's V
+        float* sSn = slice + 2 * (size_t)W;  // this row's S
+        float* sVn = slice + 3 * (size_t)W;  // this row's V
+        const int la = lens_a[p];
+        const int lb = lens_b[p];
+        const int lo = lo_p[p];
+        const int kmax = kmax_p[p];
+        const int8_t* a = codes_a + (size_t)p * la_w;
+        const int8_t* b = codes_b + (size_t)p * lb_w;
+
+        // Row 0: S = 0 at j == 0, -(go + (j-1)*ge) inside [1, lb] and the band.
+        for (int u = 0; u < cells; ++u) {
+            const int k = k0 + u;
+            const int j0 = lo + k;
+            float s = NEG;
+            if (j0 == 0) s = 0.0f;
+            else if (j0 >= 1 && j0 <= lb && k <= kmax) s = -(go + ((float)j0 - 1.0f) * ge);
+            sS[k] = s;
+            sV[k] = NEG;
+        }
+        __syncthreads();
+
+        for (int i = 1; i <= rows; ++i) {
+            const bool alive = i <= la;
+            const int ai = (i - 1 < la_w) ? (int)a[i - 1] : 5;
+
+            // Pass 1: mv, and the running maximum of B = (mv - go) + k*ge.
+            float tmax = NEG;
+            for (int u = 0; u < cells; ++u) {
+                const int k = k0 + u;
+                const int j = i + lo + k;
+                float sub = NEG;
+                if (j >= 1 && j <= lb) sub = (ai == (int)b[j - 1]) ? mt : mm;
+                const float m = sS[k] + sub;
+                const float s_up = (k + 1 < W) ? sS[k + 1] : NEG;
+                const float v_up = (k + 1 < W) ? sV[k + 1] : NEG;
+                const float mv = fmaxf(m, fmaxf(s_up - go, v_up - ge));
+                sMV[k] = mv;
+                tmax = fmaxf(tmax, (mv - go) + (float)k * ge);
+            }
+
+            // Block-wide exclusive max-scan of the per-thread maxima.
+            float x = tmax;
+#pragma unroll
+            for (int off = 1; off < 32; off <<= 1) {
+                const float y = __shfl_up_sync(0xffffffffu, x, off);
+                if (lane >= off) x = fmaxf(x, y);
+            }
+            float lane_excl = __shfl_up_sync(0xffffffffu, x, 1);
+            if (lane == 0) lane_excl = NEG;
+            if (lane == 31) sWarp[warp] = x;
+            __syncthreads();
+            if (warp == 0) {
+                float w = (lane < nwarps) ? sWarp[lane] : NEG;
+#pragma unroll
+                for (int off = 1; off < 32; off <<= 1) {
+                    const float y = __shfl_up_sync(0xffffffffu, w, off);
+                    if (lane >= off) w = fmaxf(w, y);
+                }
+                sWarp[lane] = w;
+            }
+            __syncthreads();
+            float run = fmaxf(warp > 0 ? sWarp[warp - 1] : NEG, lane_excl);
+
+            // Pass 2: the row's S, V, H and the choice and vertical bits.
+            int8_t* drow = dirs + ((size_t)(i - 1) * P + p) * W;
+            for (int u = 0; u < cells; ++u) {
+                const int k = k0 + u;
+                const int j = i + lo + k;
+                float sub = NEG;
+                if (j >= 1 && j <= lb) sub = (ai == (int)b[j - 1]) ? mt : mm;
+                const float m0 = sS[k] + sub;
+                const float s_up = (k + 1 < W) ? sS[k + 1] : NEG;
+                const float v_up = (k + 1 < W) ? sV[k + 1] : NEG;
+                const float open_v = s_up - go;
+                const float ext_v = v_up - ge;
+                const float vn = fmaxf(open_v, ext_v);
+                const bool vext = ext_v >= open_v;
+                const bool valid = j >= 0 && j <= lb && k <= kmax;
+                float h = NEG;
+                if (k > 0 && valid) h = run - ((float)k - 1.0f) * ge;
+                const float m = valid ? m0 : NEG;
+                const float v = valid ? vn : NEG;
+                const float sn = fmaxf(m, fmaxf(h, v));
+                const int choice = (m >= sn) ? 0 : ((h >= sn) ? 1 : 2);
+                sH[k] = h;
+                sSn[k] = alive ? sn : sS[k];
+                sVn[k] = alive ? v : sV[k];
+                drow[k] = (int8_t)(choice | ((int)vext << 3));
+                run = fmaxf(run, (sMV[k] - go) + (float)k * ge);
+            }
+            __syncthreads();  // sH complete
+
+            // Pass 3: the horizontal-extend bit, from H and mv at k - 1.
+            for (int u = 0; u < cells; ++u) {
+                const int k = k0 + u;
+                const float h_prev = (k > 0) ? sH[k - 1] : NEG;
+                const float mv_prev = (k > 0) ? sMV[k - 1] : NEG;
+                const bool hext = (h_prev - ge) >= (mv_prev - go);
+                drow[k] = (int8_t)(drow[k] | ((int)hext << 2));
+            }
+            float* tmp = sS; sS = sSn; sSn = tmp;
+            tmp = sV; sV = sVn; sVn = tmp;
+            __syncthreads();  // next row reads the new S/V, rewrites mv and H
+        }
+
+        const int kfin = lb - la - lo;
+        if (t == 0) scores[p] = (kfin >= 0 && kfin < W) ? sS[kfin] : NEG;
+        __syncthreads();  // the slice is reinitialised for the next pair
+    }
+}
+
+int launch_wide(const int8_t* codes_a, int la_w, const int8_t* codes_b, int lb_w,
+                const int32_t* lens_a, const int32_t* lens_b, const int32_t* lo,
+                const int32_t* kmax, int P, int rows, int W, float mt, float mm, float go,
+                float ge, float* scratch, int grid, int8_t* dirs, float* scores,
+                cudaStream_t stream)
+{
+    if (!scratch || grid <= 0) return (int)cudaErrorInvalidValue;
+    pair_wide_kernel<<<grid < P ? grid : P, WIDE_THREADS, 0, stream>>>(
+        codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, W, mt, mm, go, ge,
+        scratch, dirs, scores);
+    return (int)cudaGetLastError();
+}
+
+// The kernel of a route (0 warp, 1 block, 2 wide) at band width W, or null;
+// the route's threads a block at W.
 const void* kernel_for(int route, int W, int* threads)
 {
-    if (W < 32 || W > 4096 || (W & (W - 1))) return nullptr;
+    if (W < 32 || W > 65536 || (W & (W - 1))) return nullptr;
+    if (route == 2) {
+        *threads = WIDE_THREADS;
+        return W >= WIDE_THREADS ? (const void*)pair_wide_kernel : nullptr;
+    }
+    if (W > 4096) return nullptr;
     if (route == 0) {
         *threads = WARP_BLOCK;
         switch (W) {
@@ -406,17 +574,25 @@ const void* kernel_for(int route, int W, int* threads)
 // route 1 (block): W a power of two from 32 to 4096; threads = min(W, 256),
 // so each thread keeps at most 16 band cells (IT = 16 takes ~170 registers
 // a thread, which 256 threads fit in one SM's register file and 512 do
-// not).  Anything else is refused (cudaErrorInvalidValue).
+// not).
+// route 2 (wide): W a power of two from 256 to 65536; ``grid`` blocks of
+// 256 threads (at most P) and ``scratch`` float32 [grid, 6, W] in device
+// memory.  The other routes ignore scratch and grid.
+// Anything else is refused (cudaErrorInvalidValue).
 extern "C" int sarlacc_pair_kernel(
     const int8_t* codes_a, int la_w, const int8_t* codes_b, int lb_w,
     const int32_t* lens_a, const int32_t* lens_b, const int32_t* lo,
     const int32_t* kmax, int P, int rows, int W, float mt, float mm, float go,
-    float ge, int route, int8_t* dirs, float* scores, void* stream)
+    float ge, int route, float* scratch, int grid, int8_t* dirs, float* scores,
+    void* stream)
 {
     int threads = 0;
     if (!kernel_for(route, W, &threads)) return (int)cudaErrorInvalidValue;
     if (P <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
+    if (route == 2)
+        return launch_wide(codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, W,
+                           mt, mm, go, ge, scratch, grid, dirs, scores, s);
     if (route == 0) {
         switch (W) {
             case 32: return launch_warp<1>(codes_a, la_w, codes_b, lb_w, lens_a, lens_b, lo, kmax, P, rows, mt, mm, go, ge, dirs, scores, s);

@@ -128,7 +128,15 @@ class CudaKernel:
         return self._fn
 
     def launch(self, *args) -> None:
-        rc = self._entry()(*args)
+        """Call the entry point with ``args``, whose last is the
+        ``torch.cuda.Stream`` to launch on: the runtime launches on the
+        current device, so the stream's device is made current for the
+        call (shards on several cards each launch on their own)."""
+        import torch
+
+        *head, stream = args
+        with torch.cuda.device(stream.device):
+            rc = self._entry()(*head, stream.cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
         self.launches += 1

@@ -1,10 +1,17 @@
 """Batched consensus calling on the device (plain PyTorch).
 
-Counterpart of ``sarlacc_tpu/ops/consensus.py`` (flat layout): batches of
-MSAs travel as one concatenated byte stream plus ``(gstart, widths,
-naligns)`` descriptors, are re-padded on the device by a gather
-(:func:`_expand_flat`), tallied per column, and come back as consensus
-bases plus Phred+33 chars.  Both modes reproduce create_consensus.cpp:
+Counterpart of ``sarlacc_tpu/ops/consensus.py``, in its two layouts:
+
+* flat (the default): batches of MSAs travel as one concatenated byte
+  stream plus ``(gstart, widths, naligns)`` descriptors, are re-padded on
+  the device by a gather (:func:`_expand_flat`), tallied per column, and
+  come back as consensus bases plus Phred+33 chars;
+* padded (:func:`consensus_basic`, :func:`consensus_quality`; the mesh
+  path): dense ``[B, G, W]`` codes (and float64 error probabilities) whose
+  leading axis splits over shards, returning the natural-log error per
+  column for the host to turn into Phred chars.
+
+Both modes reproduce create_consensus.cpp:
 
 * **basic** (:61-135): A/C/G/T counts with a separate incidence count ('-'
   absent, 'N' present-but-uncounted); consensus = first max count;
@@ -21,11 +28,15 @@ device adds the same float64 values in the same order.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 __all__ = [
+    "consensus_basic",
     "consensus_basic_flat",
+    "consensus_quality",
     "consensus_quality_flat",
     "log1pexp",
     "quality_lut",
@@ -101,11 +112,27 @@ def _quality_core(codes, eps, naligns, min_cov: float):
     return keep, best, err_num - d_all
 
 
+def consensus_basic(codes, naligns, min_cov, pseudo_count):
+    """Padded-layout basic consensus: codes [B, G, W] int8 (A=0..T=3, N=4,
+    '-' and padding 5), naligns [B] -> (keep [B, W] bool, best [B, W] int8,
+    err [B, W] float32, the natural-log error probability)."""
+    return _basic_core(codes, naligns, float(min_cov), float(pseudo_count))
+
+
+def consensus_quality(codes, eps, naligns, min_cov):
+    """Padded-layout quality consensus: codes [B, G, W] int8 and eps
+    [B, G, W] float64 error probabilities aligned to the gapped columns
+    (0.5 at gaps and padding) -> (keep, best, err [B, W] float64)."""
+    return _quality_core(codes, eps, naligns, float(min_cov))
+
+
 def _phred_chars(err: torch.Tensor) -> torch.Tensor:
     """Natural-log error -> Phred+33 char codes (create_consensus.cpp:18-32;
-    std::round == floor(x + 0.5) for the non-negative operand)."""
-    ln10 = torch.log(torch.tensor(10.0, dtype=err.dtype, device=err.device))
-    to_ascii = torch.clamp(torch.floor(-10.0 * err / ln10 + 0.5), max=93.0)
+    std::round == floor(x + 0.5) for the non-negative operand).  ln 10 is
+    the host's constant, so the card divides by the number the padded
+    path's host conversion (:func:`..core.quality.errors_to_phred_string`)
+    divides by."""
+    to_ascii = torch.clamp(torch.floor(-10.0 * err / math.log(10.0) + 0.5), max=93.0)
     return (to_ascii + 33.0).to(torch.uint8)
 
 

@@ -220,7 +220,7 @@ def _launch_dirs(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, local=T
         modes.data_ptr(), mask.data_ptr(), R, go, ge,
         int(bool(local)), costm.data_ptr(), costmm.data_ptr(),
         codes_k.data_ptr(), l1, n_pad, tj, G, passes, _ptr(scratch), S.data_ptr(),
-        dirs.data_ptr(), _ptr(stamps), torch.cuda.current_stream(dev).cuda_stream,
+        dirs.data_ptr(), _ptr(stamps), torch.cuda.current_stream(dev),
     )
     return S, dirs
 
@@ -356,7 +356,7 @@ def _launch_score(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, length
         modes.data_ptr(), mask.data_ptr(), R, go, ge, int(bool(local)),
         costm.data_ptr(), costmm.data_ptr(), codes_k.data_ptr(),
         lengths.data_ptr(), N, l1, n_pad, tj, _ptr(scratch),
-        out.data_ptr(), _ptr(stamps), torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), _ptr(stamps), torch.cuda.current_stream(dev),
     )
     return out
 
@@ -406,7 +406,7 @@ def _launch_segments(modes, mask, segs, costm, costmm, codes_k, lens_k, stamps=N
     ).to(dev)
     scratch = _scratch(max(max(g) + 1 for _, _, g in groups), l1, n_pad, dev)
     blocks = n_pad // 128
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(dev)
     for s0, s1, _ in groups:  # one stream: the launches share the scratch in turn
         kernel.launch(
             modes.data_ptr(), mask.data_ptr(), seg_i[s0].data_ptr(), seg_f[s0].data_ptr(),

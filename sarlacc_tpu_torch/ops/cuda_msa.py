@@ -13,10 +13,12 @@ bit 2 a horizontal extend, bit 3 a vertical extend (a tie extends).
 Sequence A contributes code 5 past its stored width; B cells outside
 ``[1, lb]`` score ``NEG``, so pads never match.
 
-The kernel has two routes, chosen by band width (:func:`pair_route`): one
+The kernel has three routes, chosen by band width (:func:`pair_route`): one
 warp a pair with the band in registers up to :data:`WARP_MAX_WIDTH` (every
-bucket of the pipeline), one block a pair above it.  A build or launch
-error of either raises.
+bucket of the pipeline), one block a pair with the band in shared memory up
+to :data:`BLOCK_MAX_WIDTH`, and one block a pair with the band's rows in a
+device scratch buffer up to :data:`MAX_WIDTH` (reads that differ in length
+by kilobases).  A build or launch error of any raises.
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ import torch
 from ..native.build import CudaKernel, check_tensor, kernel_resources
 
 __all__ = [
-    "MAX_WIDTH", "NEG", "PAIR_KERNEL", "PAIR_ROUTES", "WARP_MAX_WIDTH", "banded_pair",
-    "banded_pair_plain", "pair_kernel", "pair_kernel_resources", "pair_route",
+    "BLOCK_MAX_WIDTH", "MAX_WIDTH", "NEG", "PAIR_KERNEL", "PAIR_ROUTES", "WARP_MAX_WIDTH",
+    "banded_pair", "banded_pair_plain", "pair_kernel", "pair_kernel_resources",
+    "pair_route",
 ]
 
 NEG = -1.0e9  # integer-ish scores stay far from this
@@ -43,23 +46,48 @@ _F = ctypes.c_float
 PAIR_KERNEL = CudaKernel(
     "pair_kernel.cu",
     "sarlacc_pair_kernel",
-    [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P],
+    [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _P, _P, _P],
 )
 
-#: Widest band the kernel takes: 256 threads of at most 16 band cells each.
-MAX_WIDTH = 4096
+#: Widest band the kernel takes: ``multi_read_align`` caps reads at 32 000
+#: bases, so |la - lb| + 2 * bandwidth + 1 buckets to at most 32 768 for a
+#: bandwidth up to 383 and to 65 536 up to 16 383.
+MAX_WIDTH = 65536
+
+#: Widest band of the block route: 256 threads of at most 16 band cells each.
+BLOCK_MAX_WIDTH = 4096
 
 #: Widest band of the warp route: 32 lanes of at most 16 band cells each.
 WARP_MAX_WIDTH = 512
 
 #: The routes, in the kernel's numbering.
-PAIR_ROUTES = ("warp", "block")
+PAIR_ROUTES = ("warp", "block", "wide")
+
+#: Blocks of 256 threads a wide-route launch puts on each of the card's
+#: SMs (at most); they stride over the pairs, each with its own [6, W]
+#: float32 slice of scratch.
+WIDE_BLOCKS_PER_SM = 2
+
+#: Narrowest band the wide route takes: one cell for each of its threads.
+WIDE_MIN_WIDTH = 256
 
 
 def pair_route(width: int) -> str:
     """Kernel B's route for a band of ``width`` cells: one warp a pair up to
-    :data:`WARP_MAX_WIDTH`, one block a pair above."""
-    return "warp" if width <= WARP_MAX_WIDTH else "block"
+    :data:`WARP_MAX_WIDTH`, one block a pair with the band in shared memory
+    up to :data:`BLOCK_MAX_WIDTH`, the wide route above."""
+    if width <= WARP_MAX_WIDTH:
+        return "warp"
+    return "block" if width <= BLOCK_MAX_WIDTH else "wide"
+
+
+def _route_takes(route: str, width: int) -> bool:
+    """Whether the kernel has ``route`` at band width ``width``."""
+    if route == "warp":
+        return width <= WARP_MAX_WIDTH
+    if route == "block":
+        return width <= BLOCK_MAX_WIDTH
+    return route == "wide" and width >= WIDE_MIN_WIDTH
 
 
 def _shift_up(x: torch.Tensor) -> torch.Tensor:
@@ -172,16 +200,17 @@ def _launch_pair(
     codes_a, codes_b, lens_a, lens_b, lo, kmax,
     match, mismatch, gap_open, gap_ext, rows: int, width: int, route=None,
 ):
-    """:func:`pair_kernel`, with a route forced (``"warp"`` or ``"block"``),
-    which only measurement sets."""
+    """:func:`pair_kernel`, with a route forced (``"warp"``, ``"block"`` or
+    ``"wide"``), which only measurement sets."""
     P, LA = codes_a.shape
     LB = codes_b.shape[1]
     if not 32 <= width <= MAX_WIDTH or width & (width - 1):
         raise ValueError(
-            f"band width {width}: kernel B takes a power of two from 32 to {MAX_WIDTH}"
+            f"band width {width}: kernel B takes a power of two from 32 to {MAX_WIDTH} "
+            f"(reads of at most 32 000 bases and a bandwidth of at most 16 383)"
         )
     route = pair_route(width) if route is None else route
-    if route not in PAIR_ROUTES or (route == "warp" and width > WARP_MAX_WIDTH):
+    if route not in PAIR_ROUTES or not _route_takes(route, width):
         raise ValueError(f"kernel B has no {route!r} route at band width {width}")
     check_tensor(codes_a, "codes_a", torch.int8, (P, LA))
     check_tensor(codes_b, "codes_b", torch.int8, (P, LB))
@@ -190,14 +219,20 @@ def _launch_pair(
     dev = codes_a.device
     dirs = torch.empty((rows, P, width), dtype=torch.int8, device=dev)
     scores = torch.empty(P, dtype=torch.float32, device=dev)
+    grid, scratch = 0, None
+    if route == "wide":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid = max(1, min(P, WIDE_BLOCKS_PER_SM * sms))
+        scratch = torch.empty((grid, 6, width), dtype=torch.float32, device=dev)
     PAIR_KERNEL.launch(
         codes_a.data_ptr(), LA, codes_b.data_ptr(), LB,
         lens_a.data_ptr(), lens_b.data_ptr(), lo.data_ptr(), kmax.data_ptr(),
         P, rows, width,
         float(np.float32(match)), float(np.float32(mismatch)),
         float(np.float32(gap_open)), float(np.float32(gap_ext)), PAIR_ROUTES.index(route),
+        None if scratch is None else scratch.data_ptr(), grid,
         dirs.data_ptr(), scores.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev),
     )
     return scores, dirs
 
@@ -211,7 +246,7 @@ def pair_kernel_resources(widths=(256, 512, 1024), kernel=PAIR_KERNEL) -> dict:
     return {
         f"B:{route}@{w}": kernel_resources(fn, PAIR_ROUTES.index(route), w)
         for w in widths for route in PAIR_ROUTES
-        if route == "block" or w <= WARP_MAX_WIDTH
+        if _route_takes(route, w) and (route != "wide" or pair_route(w) == "wide")
     }
 
 

@@ -22,6 +22,12 @@ Counterpart of ``sarlacc_tpu/ops/msa.py``:
 The walks, the merge DP, the accumulation and the library steps are plain
 PyTorch on the device: one small launch per row or step.  The JAX
 package's scans become Python loops here.
+
+Under an active mesh (:mod:`..parallel.context`) each kernel-B launch's
+pairs split over the shards: kernel B, the walk and the identities run on
+each shard's device, and the jmat and identities gather back to the
+primary device in pair order.  Segments, merge waves and the host
+orchestration are unchanged, so the results equal the solo run's.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import memory_budget, resolve_device
+from ..parallel.context import active_mesh, shard_bounds
 from ..utils.profiling import StageStats, get_profiler
 from .cuda_msa import NEG, banded_pair
 
@@ -153,9 +160,17 @@ def _compact_jmat(jmat: np.ndarray, n: int) -> list:
 
 def _pair_chunk(rows_b: int, W_b: int, budget: int) -> int:
     """Max pairs per kernel-B launch so its [rows, P, W] int8 directions
-    stay under ``budget`` bytes (a power of two, at least 128)."""
+    stay under ``budget`` bytes: a power of two, down to one pair a launch
+    for the widest bands.  Raises when one pair's directions alone exceed
+    the budget."""
     p = budget // max(rows_b * W_b, 1)
-    c = 128
+    if p < 1:
+        raise MemoryError(
+            f"one pair's kernel-B directions ({rows_b} rows x band {W_b} = "
+            f"{rows_b * W_b / 2**30:.2f} GiB) exceed the {budget / 2**30:.2f} GiB "
+            f"budget; use a narrower bandwidth or shorter reads"
+        )
+    c = 1
     while c * 2 <= p:
         c *= 2
     return c
@@ -166,11 +181,41 @@ def _run_pair_bucket(
     match, mismatch, gap_open, gap_ext, rows_b, W_b, device,
 ):
     """One shape-bucketed launch: kernel B, the device walk and the pairs'
-    identities.
+    identities, on ``device``, or under an active mesh on each shard's
+    device for its share of the pairs.
+
+    Returns (scores f32 [P], jmat int32 [rows_b, P], ident f32 [P]) on
+    ``device``, pairs in order.
+    """
+    mesh = active_mesh()
+    if mesh is None:
+        return _pair_bucket_on(
+            codes_a, lens_a, codes_b, lens_b, lo, hi,
+            match, mismatch, gap_open, gap_ext, rows_b, W_b, device,
+        )
+    parts = [
+        _pair_bucket_on(
+            codes_a[p0:p1], lens_a[p0:p1], codes_b[p0:p1], lens_b[p0:p1], lo[p0:p1],
+            hi[p0:p1], match, mismatch, gap_open, gap_ext, rows_b, W_b, shard,
+        )
+        for (p0, p1), shard in zip(shard_bounds(codes_a.shape[0], mesh.size), mesh.devices)
+        if p1 > p0
+    ]
+    scores, jmat, ident = zip(*parts)
+    return (
+        torch.cat([x.to(device) for x in scores]),
+        torch.cat([x.to(device) for x in jmat], dim=1),
+        torch.cat([x.to(device) for x in ident]),
+    )
+
+
+def _pair_bucket_on(
+    codes_a, lens_a, codes_b, lens_b, lo, hi,
+    match, mismatch, gap_open, gap_ext, rows_b, W_b, device,
+):
+    """:func:`_run_pair_bucket` on one device.
 
     Code rows pad with 5 to the bucket widths (A exactly to ``rows_b``).
-    Returns (scores f32 [P], jmat int32 [rows_b, P], ident f32 [P]) on
-    ``device``.
     """
     P = codes_a.shape[0]
     lb_b = _bkt(max(int(lens_b.max()), 1), 64)

@@ -98,7 +98,7 @@ def op_mix_kernel(cls: str, a, b1, b2, iters: int):
     out = torch.empty_like(a)
     KERNELS[cls].launch(
         a.data_ptr(), b1.data_ptr(), b2.data_ptr(), out.data_ptr(), int(iters),
-        rows // 8, torch.cuda.current_stream(a.device).cuda_stream,
+        rows // 8, torch.cuda.current_stream(a.device),
     )
     return out
 

@@ -174,7 +174,7 @@ def op_rates_kernel(cls: str, a, b1, b2, iters: int, k1: int, k2: int):
     out = torch.empty_like(a)
     KERNELS[cls].launch(
         a.data_ptr(), b1.data_ptr(), b2.data_ptr(), out.data_ptr(), int(iters),
-        int(k1), int(k2), rows // 8, torch.cuda.current_stream(a.device).cuda_stream,
+        int(k1), int(k2), rows // 8, torch.cuda.current_stream(a.device),
     )
     return out
 

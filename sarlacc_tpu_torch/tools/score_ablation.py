@@ -198,7 +198,7 @@ def ablation_kernel(variant, modes, mask, gap_open, gap_ext, costm, costmm, code
         modes.data_ptr(), mask.data_ptr(), R, go, ge, int(bool(local)), costm.data_ptr(),
         costmm.data_ptr(), codes_k.data_ptr(), lengths.data_ptr(), N, l1, n_pad,
         S.data_ptr(), H.data_ptr(), out.data_ptr(), 0,
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev),
     )
     return out
 

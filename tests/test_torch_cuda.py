@@ -235,7 +235,7 @@ def test_pair_kernel_resources(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [96, 8192])
+@pytest.mark.parametrize("W", [96, 131072])
 def test_pair_kernel_rejects_bad_width(cuda_device, W):
     args = [torch.as_tensor(a, device=cuda_device) for a in _pairs(np.random.default_rng(2), 4, 64, W, 6)]
     with pytest.raises(ValueError, match="power of two"):
@@ -508,3 +508,172 @@ def test_device_library_on_card_matches_cpu(cuda_device, monkeypatch):
     card = multi_read_align(batch, groups=groups, bandwidth=30, device=cuda_device)
     cpu = multi_read_align(batch, groups=groups, bandwidth=30, device="cpu")
     assert card["alignments"] == cpu["alignments"]
+
+
+def _wide_pairs(rng, P, rows, lb_range, bw):
+    """Pairs whose B reads are kilobases longer than their A reads, A's
+    bases planted in B at a random offset (80% kept)."""
+    LA, LB = rows, lb_range[1]
+    codes_a = rng.integers(0, 5, (P, LA)).astype(np.int8)
+    codes_b = rng.integers(0, 5, (P, LB)).astype(np.int8)
+    for p, off in enumerate(rng.integers(0, lb_range[0] - LA, P)):
+        keep = rng.random(LA) < 0.8
+        codes_b[p, off : off + LA] = np.where(keep, codes_a[p], codes_b[p, off : off + LA])
+    lens_a = rng.integers(rows // 2, LA + 1, P).astype(np.int32)
+    lens_b = rng.integers(lb_range[0], LB + 1, P).astype(np.int32)
+    diffs = lens_b.astype(np.int64) - lens_a
+    lo = (np.minimum(0, diffs) - bw).astype(np.int32)
+    hi = (np.maximum(0, diffs) + bw).astype(np.int32)
+    return codes_a, codes_b, lens_a, lens_b, lo, hi - lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [3, 300])
+def test_pair_kernel_wide_route_matches_plain(cuda_device, P):
+    """W = 8192 (reads 4-4.6 kb against 128-256 bp) takes the wide route;
+    300 pairs make its blocks (two an SM, 264 on an H100) stride over the
+    pairs."""
+    rng = np.random.default_rng(P)
+    arrays = _wide_pairs(rng, P, 256, (4000, 4600), 100)
+    assert int(arrays[5].max()) + 1 <= 8192 and pair_route(8192) == "wide"
+    args = [torch.as_tensor(a, device=cuda_device) for a in arrays]
+    before = PAIR_KERNEL.launches
+    s_k, d_k = banded_pair(*args, 0.0, -1.0, 5.0, 1.0, 256, 8192)
+    assert PAIR_KERNEL.launches == before + 1
+    s_p, d_p = banded_pair_plain(*args, 0.0, -1.0, 5.0, 1.0, 256, 8192)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, d_p)
+    assert torch.equal(s_k, s_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,W", [(64, 256), (512, 1024), (64, 4096)])
+def test_pair_kernel_wide_route_forced_matches_plain(cuda_device, rows, W):
+    """The wide route forced below its own widths, against the plain version."""
+    rng = np.random.default_rng(rows + W + 7)
+    arrays = _pairs(rng, 70, rows, W, bw=min(100, (W - 26) // 2))
+    args = [torch.as_tensor(a, device=cuda_device) for a in arrays]
+    s_k, d_k = cuda_msa._launch_pair(*args, 2.0, -3.0, 4.0, 2.0, rows, W, route="wide")
+    s_p, d_p = banded_pair_plain(*args, 2.0, -3.0, 4.0, 2.0, rows, W)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, d_p)
+    assert torch.equal(s_k, s_p)
+
+
+@pytest.mark.cuda
+def test_wide_band_family_on_card_matches_cpu(cuda_device):
+    """A 200-bp read and a 4.5-kb read: one kernel-B launch on the wide
+    route, and the same alignment as on the CPU."""
+    from sarlacc_tpu_torch.api.msa import multi_read_align
+
+    rng = np.random.default_rng(12)
+    long = "".join(rng.choice(list("ACGT"), 4500))
+    short = list(long[2000:2200])
+    for p in rng.integers(0, 200, 6):
+        short[p] = "ACGT"[("ACGT".index(short[p]) + 1) % 4]
+    batch = SeqBatch.from_strings(["".join(short), long])
+    before = PAIR_KERNEL.launches
+    card = multi_read_align(batch, groups=[[0, 1]], device=cuda_device)
+    assert PAIR_KERNEL.launches > before
+    cpu = multi_read_align(batch, groups=[[0, 1]], device="cpu")
+    assert card["alignments"] == cpu["alignments"]
+
+
+def _same_frames(a, b):
+    assert a.colnames == b.colnames
+    for c in a.colnames:
+        x, y = a[c], b[c]
+        if hasattr(x, "colnames"):
+            _same_frames(x, y)
+        elif hasattr(x, "seq_strings"):
+            assert x.seq_strings() == y.seq_strings() and x.qual_strings() == y.qual_strings()
+        else:
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+@pytest.mark.cuda
+def test_mesh_equals_solo_on_card(cuda_device, tmp_path):
+    """adaptor_align and multi_read_align on four shards of the one card
+    equal the same calls without a mesh, bit for bit."""
+    import sarlacc_tpu_torch as st
+    from sarlacc_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(4)
+    assert mesh.devices == (torch.device("cuda", 0),) * 4
+    fp = str(tmp_path / "reads.fastq")
+    st.mock_reads(ADAPTOR, ADAPTOR2, fp, nmolecules=10, nreads_range=(4, 9),
+                  seqlen_range=(350, 600), seed=20240817)
+    batch = st.read_fastq(fp)
+    solo = st.adaptor_align(ADAPTOR, ADAPTOR2, reads=batch, tolerance=250, device=cuda_device)
+    meshed = st.adaptor_align(ADAPTOR, ADAPTOR2, reads=batch, tolerance=250, mesh=mesh)
+    _same_frames(meshed, solo)
+    groups = [g for g in st.umi_group(solo["adaptor1"]["subseq"]["Sub2"], threshold1=2,
+                                      device=cuda_device) if len(g) >= 2]
+    reads = st.realize_reads(solo, reads=batch, trim=False, device=cuda_device)
+    a = st.multi_read_align(reads, groups=groups, device=cuda_device)
+    b = st.multi_read_align(reads, groups=groups, mesh=mesh)
+    assert a["alignments"] == b["alignments"]
+
+
+def _cards(n=2):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices")
+    return torch.cuda.device_count()
+
+
+@pytest.mark.cuda
+def test_mesh_across_cards_equals_solo(tmp_path):
+    """One shard a card: adaptor_align and multi_read_align equal the
+    calls on one card, bit for bit."""
+    import sarlacc_tpu_torch as st
+    from sarlacc_tpu_torch.parallel import make_mesh
+
+    n = _cards()
+    mesh = make_mesh()
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(n))
+    fp = str(tmp_path / "reads.fastq")
+    st.mock_reads(ADAPTOR, ADAPTOR2, fp, nmolecules=10, nreads_range=(4, 9),
+                  seqlen_range=(350, 600), seed=20240817)
+    batch = st.read_fastq(fp)
+    solo = st.adaptor_align(ADAPTOR, ADAPTOR2, reads=batch, tolerance=250, device="cuda:0")
+    meshed = st.adaptor_align(ADAPTOR, ADAPTOR2, reads=batch, tolerance=250, mesh=mesh)
+    _same_frames(meshed, solo)
+    groups = [g for g in st.umi_group(solo["adaptor1"]["subseq"]["Sub2"], threshold1=2,
+                                      device="cuda:0") if len(g) >= 2]
+    reads = st.realize_reads(solo, reads=batch, trim=False, device="cuda:0")
+    a = st.multi_read_align(reads, groups=groups, device="cuda:0")
+    b = st.multi_read_align(reads, groups=groups, mesh=mesh)
+    assert a["alignments"] == b["alignments"]
+
+
+@pytest.mark.cuda
+def test_ranks_with_a_card_each_equal_one_process(tmp_path):
+    """A rank a card on the default backend (NCCL): the gathered scores and
+    summed histograms equal one process's, bit for bit."""
+    import json
+    import pathlib
+    import sys
+    import time
+
+    import torch.multiprocessing as mp
+
+    from sarlacc_tpu_torch.io.fastq import write_fastq
+
+    n = _cards()
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    import torch_distributed_worker as worker
+
+    rng = np.random.default_rng(4)
+    seqs = ["".join(rng.choice(list("ACGT"), int(rng.integers(20, 120)))) for _ in range(301)]
+    fp = str(tmp_path / "reads.fastq")
+    write_fastq(fp, seqs=seqs, quals=["I" * len(x) for x in seqs])
+    ctx = mp.spawn(worker.run_cards, args=(f"file://{tmp_path / 'rendezvous'}", fp, str(tmp_path), n),
+                   nprocs=n, join=False)
+    deadline = time.monotonic() + 240
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail("the ranks did not finish within 240 s")
+    res = json.loads((tmp_path / "cards.json").read_text())
+    assert res == {"backend": "nccl", "device": "cuda:0", "equal": True}

@@ -97,3 +97,52 @@ def test_port_imports_and_builds_without_the_jax_package():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("ok ") and "sarlacc_tpu_torch" in out.stdout
+
+
+#: The parallel layer and the oracles the port copied: each must be among
+#: the parsed sources and import under the blocked interpreter.
+PARALLEL_AND_ORACLES = (
+    "sarlacc_tpu_torch.parallel",
+    "sarlacc_tpu_torch.parallel.context",
+    "sarlacc_tpu_torch.parallel.distributed",
+    "sarlacc_tpu_torch.parallel.mesh",
+    "sarlacc_tpu_torch.parallel.shuffle",
+    "sarlacc_tpu_torch.refimpl.consensus",
+    "sarlacc_tpu_torch.refimpl.levenshtein",
+)
+
+QUIET_IMPORT = """
+import importlib, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {forbidden!r}:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import torch
+for name in {modules!r}:
+    importlib.import_module(name)
+import torch.distributed as dist
+assert not (dist.is_available() and dist.is_initialized()), "a process group was initialised"
+assert not torch.cuda.is_initialized(), "CUDA was initialised"
+print("ok")
+"""
+
+
+def test_parallel_and_oracles_are_checked_and_import_quietly():
+    """parallel/ and the copied oracles are among the parsed sources;
+    importing them without the JAX package initialises no process group
+    and touches no card."""
+    parsed = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for name in PARALLEL_AND_ORACLES:
+        rel = name.replace(".", "/")
+        assert f"{rel}.py" in parsed or f"{rel}/__init__.py" in parsed, name
+    out = subprocess.run(
+        [sys.executable, "-c", QUIET_IMPORT.format(forbidden=set(FORBIDDEN),
+                                                    modules=PARALLEL_AND_ORACLES)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "ok"

@@ -30,6 +30,7 @@ import jax.numpy as jnp  # noqa: E402,F401  (JAX before the Pallas module)
 from sarlacc_tpu.ops.pallas_msa import banded_pair_pallas  # noqa: E402
 from sarlacc_tpu_torch.ops import cuda_msa  # noqa: E402
 from sarlacc_tpu_torch.ops.cuda_msa import (  # noqa: E402
+    BLOCK_MAX_WIDTH,
     MAX_WIDTH,
     PAIR_ROUTES,
     WARP_MAX_WIDTH,
@@ -220,14 +221,19 @@ def test_warp_schedule_with_rows_past_every_read(W):
 
 def test_route_follows_the_band_width():
     """The warp route up to 512 cells (every bucket of the pipeline: W 64 to
-    512), the block route above; the kernel's numbering."""
-    assert PAIR_ROUTES == ("warp", "block")
-    assert WARP_MAX_WIDTH == 512 and MAX_WIDTH == 4096
+    512), the block route up to 4096, the wide route above; the kernel's
+    numbering."""
+    assert PAIR_ROUTES == ("warp", "block", "wide")
+    assert WARP_MAX_WIDTH == 512 and BLOCK_MAX_WIDTH == 4096 and MAX_WIDTH == 65536
     assert [pair_route(w) for w in (32, 64, 128, 256, 512)] == ["warp"] * 5
     assert [pair_route(w) for w in (1024, 2048, 4096)] == ["block"] * 3
+    assert [pair_route(w) for w in (8192, 16384, 32768, 65536)] == ["wide"] * 4
 
 
-@pytest.mark.parametrize("width,route", [(1024, "warp"), (256, "lane"), (96, None), (8192, None)])
+@pytest.mark.parametrize(
+    "width,route",
+    [(1024, "warp"), (256, "lane"), (96, None), (131072, None), (8192, "block"), (128, "wide")],
+)
 def test_launch_refuses_a_route_or_width_it_has_not(width, route):
     """A forced route must exist at the width, and the width must be a
     power of two the kernel takes; both raise before any launch."""

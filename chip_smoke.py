@@ -9,7 +9,7 @@ on its own line:
 
 1. environment: torch / CUDA / nvcc versions, card name and power limit;
 2. build: the hand-written CUDA kernels (one nvcc per source, all started
-   together: the four of the main paths and the tools' two) and the native
+   together: the five of the main paths and the tools' two) and the native
    host library, from this checkout's sources;
 3. kernels: kernel A (direction DP) at adaptor_align's stacked ends (R =
    51 and 14), at quality_align's launch (R = 500, global) and at a
@@ -31,15 +31,20 @@ on its own line:
    registers, shared memory and occupancy (theoretical, and achieved from
    per-block timer stamps); after phases 9 and 10, every kernel once more
    at each launch shape the mesh run and rank 0 of the distributed run
-   launched (recorded as they ran; kernel B one shape a band width),
-   against its plain version;
+   launched (recorded as they ran; kernels B, E and F one shape a (rows,
+   band width)), against its plain version;
 4. golden: the seed-locked mock pipeline of tests/test_golden_pipeline.py
    through the port's five entry points on the card, compared key by key
-   with tests/golden/pipeline_mock.json;
+   with tests/golden/pipeline_mock.json; one call of kernels E and F for
+   each (rows, band width) it launched, recorded as it ran, then replayed
+   against its plain version (jmat and identities bit-equal);
 5. pipeline: the ~10k-read workload of bench.py (950 molecules, 8-14 reads
    each, 400-700 bp, seed 7, 12 bp UMI): one warm-up pass that also times
-   the plain-PyTorch device steps and both library routes' steps, prints
-   the stage profiler's report and records kernel B's launch shapes, then
+   the plain-PyTorch device steps, the kernels' wrappers and both library
+   routes' steps, prints the stage profiler's report and records kernel
+   B's launch shapes and one call of kernels E (merge DP + walk) and F
+   (pair walk + identity) for each (rows, band width), each then replayed
+   against its plain version (jmat and identities bit-equal), then
    one timed pass (the default, device-library route of multi_read_align)
    with per-stage seconds, peak allocated memory and the kernels' launch
    counts, then multi_read_align on its reads and groups with
@@ -102,10 +107,14 @@ max |diff|, its launches over those runs (``launches``, and per path in
 ``launches_by_path``), registers and spill bytes a thread, and
 ``bound_ms``: the larger of its compulsory bytes
 (each input read once, each output written once; of the cost planes only
-the slots the references select, at the rows the DP computes) over 3.35
+the slots the references select, at the rows the DP computes, and for
+kernel E only the cells of live rows whose column lies in the other
+profile; for the walks one 32-byte sector of directions a walked row) over 3.35
 TB/s and its float operations over 67 TFLOP/s (the H100 SXM data sheet),
-with ``bound_by`` naming the larger.  ``library_ms`` is null: no single
-PyTorch call computes these DPs or chains.  The last line is ``{"ok": true,
+with ``bound_by`` naming the larger; the walks' rows also give
+``chain_rows``, the longest chain of dependent row steps, which bounds
+them more than either.  ``library_ms`` is null: no single PyTorch call
+computes these DPs, walks or chains.  The last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises and exits non-zero; so does a
 machine without a CUDA device.  Imports no JAX.
 """
@@ -143,7 +152,9 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
 #: Float operations (adds, multiplies, maxes, compares and selects) a DP
-#: cell, counted in each kernel's cell body: A 26 (``csrc/dir_kernel.cu``'s
+#: cell, counted in each kernel's cell body: E 6 (``csrc/merge_kernel.cu``:
+#: M's add, the two maxes, the choice's two compares, the valid select);
+#: A 26 (``csrc/dir_kernel.cu``'s
 #: ``cell``: M, the horizontal candidates and choice, V, B, S, the direction
 #: compares, the next row's vertical test, cum, and the cost select the
 #: plain version makes); B 21 (``csrc/pair_kernel.cu``'s per-cell loops:
@@ -152,7 +163,7 @@ PEAK_F32 = 67e12
 #: the masks, S and the choice); C and D 10 (``csrc/score_kernel.cu``'s
 #: ordinary cell: 6 adds, 4 maxes); the ablation kernels 17, the column-outer
 #: body (``tools/op_rates.py::COLUMN_BODY_CENSUS``: 10 adds, 4 maxes, 3 selects).
-OPS_PER_CELL = {"A": 26, "B": 21, "C": 10, "D": 10, "ablation": 17}
+OPS_PER_CELL = {"A": 26, "B": 21, "C": 10, "D": 10, "ablation": 17, "E": 6}
 
 
 def nbytes(*tensors) -> int:
@@ -405,6 +416,8 @@ WRAPPERS = {
     "B": ("sarlacc_tpu_torch.ops.cuda_msa", "pair_kernel"),
     "C": ("sarlacc_tpu_torch.ops.cuda_align", "score_kernel"),
     "D": ("sarlacc_tpu_torch.ops.cuda_align", "segments_kernel"),
+    "E": ("sarlacc_tpu_torch.ops.cuda_walk", "merge_dp_walk"),
+    "F": ("sarlacc_tpu_torch.ops.cuda_walk", "pair_walk"),
 }
 
 
@@ -414,6 +427,11 @@ def call_shape(key, args, with_pairs=True) -> str:
     if key == "B":
         pairs = f"P{int(args[0].shape[0])}x" if with_pairs else ""
         return f"{pairs}R{int(args[10])}xW{int(args[11])}"
+    if key in "EF":  # E: cost [Pp, rows, W]; F: dirs [rows, P, W], kernel B's launch shape
+        shape = args[0].shape
+        P, rows = (shape[0], shape[1]) if key == "E" else (shape[1], shape[0])
+        pairs = f"P{int(P)}x" if with_pairs else ""
+        return f"{key}:{pairs}R{int(rows)}xW{int(shape[2])}"
     if key == "D":  # modes, mask, segs, costm, costmm, codes_k, lens_k
         l1, n_pad = args[5].shape
         return f"nseg{len(args[2])}xR{int(args[0].shape[0])}xl1{l1}xN{n_pad}"
@@ -424,11 +442,12 @@ def call_shape(key, args, with_pairs=True) -> str:
     return f"R{int(args[0].shape[0])}xl1{l1}xN{n}:{'fitting' if local else 'global'}"
 
 
-def record_calls(torch, path, keys="ABCD", per_width=False):
+def record_calls(torch, path, keys="ABCDEF", per_width=False):
     """Wrap the wrappers of kernels ``keys`` so that the first call of each
     distinct launch shape keeps a copy of its arguments, named
-    ``path:shape``; with ``per_width``, kernel B keeps one call for each
-    (rows, W) only.  Returns ({name: (key, arguments)}, undo)."""
+    ``path:shape``; kernels E and F, and with ``per_width`` kernel B, keep
+    one call for each (rows, W) only.  Returns ({name: (key, arguments)},
+    undo)."""
     import importlib
 
     calls, seen, undo = {}, set(), []
@@ -438,7 +457,7 @@ def record_calls(torch, path, keys="ABCD", per_width=False):
         orig = getattr(owner, attr)
 
         def recording(*args, _key=key, _orig=orig):
-            sig = (_key, call_shape(_key, args, not per_width))
+            sig = (_key, call_shape(_key, args, not (per_width or _key in "EF")))
             if sig not in seen:
                 seen.add(sig)
                 calls[f"{path}:{call_shape(_key, args)}"] = (
@@ -460,7 +479,7 @@ def replay_rows(torch, calls, dev):
     against its plain version on the same arguments (directions and scores
     equal, tolerance 0), with CUDA-event times and the bound: the kernels
     at the shapes a path launched them.  Kernel B's calls go through
-    :func:`pair_rows`."""
+    :func:`pair_rows`, kernels E and F's through :func:`walk_rows`."""
     from sarlacc_tpu_torch.ops.align import dp_align, dp_scores, dp_scores_segments
     from sarlacc_tpu_torch.ops.cuda_align import (
         dir_kernel, dir_kernel_resources, dir_plan, score_kernel, score_kernel_resources,
@@ -468,11 +487,14 @@ def replay_rows(torch, calls, dev):
     )
 
     res = {**dir_kernel_resources(), **score_kernel_resources()}
-    rows_out, pairs = [], {}
+    rows_out, pairs, walks = [], {}, {}
     for name, (key, args) in calls.items():
         args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
         if key == "B":
             pairs[name] = args
+            continue
+        if key in "EF":
+            walks[name] = (key, args)
             continue
         if key == "A":
             modes, mask, *_, codes_k, local = args
@@ -520,7 +542,8 @@ def replay_rows(torch, calls, dev):
         rows_out.append(dict(key=key, name=name, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                              bound_by=by, gcups=cells / ms / 1e6, registers=r["registers"],
                              spill_bytes=r["spill_bytes"], **extra))
-    return rows_out + (pair_rows(torch, pairs, dev) if pairs else [])
+    return (rows_out + (pair_rows(torch, pairs, dev) if pairs else [])
+            + (walk_rows(torch, walks, dev) if walks else []))
 
 
 def pair_rows(torch, cases, dev):
@@ -560,6 +583,86 @@ def pair_rows(torch, cases, dev):
                         bound_by=by, gcups=cells / ms / 1e6, route=route, block_ms=block_ms,
                         registers=r["registers"], spill_bytes=r["spill_bytes"]))
         del sk, dk
+    return out
+
+
+def walk_rows(torch, cases, dev):
+    """Kernels E and F at each recorded ``name -> (key, arguments)`` call
+    against their plain versions (run once a shape; jmat and identities
+    bit-equal, tolerance 0), with CUDA-event times, the bound and the
+    longest chain of dependent row steps: for E the DP's live rows then the
+    walk's, for F the rows one pair walks."""
+    from sarlacc_tpu_torch.ops import cuda_walk
+    from sarlacc_tpu_torch.ops.msa import (
+        _merge_walk_kernel, _pair_ident_kernel, _pair_walk_kernel, _profile_merge_kernel,
+    )
+
+    widths = sorted({int(a[0].shape[2]) for k, a in cases.values() if k == "E"})
+    res = cuda_walk.walk_kernel_resources(widths or (256,))
+    out = []
+    for name, (key, args) in cases.items():
+        if key == "E":
+            cost, la, lb, lo, kmax = args
+            Pp, rows, W = cost.shape
+            jm = cuda_walk.merge_dp_walk(*args)
+            want, plain_ms = timed_once(torch, lambda: _merge_walk_kernel(
+                _profile_merge_kernel(*args), la, lb, lo))
+            torch.cuda.synchronize()
+            if not torch.equal(jm, want):
+                raise AssertionError(f"kernel E ({name}): jmat differs from the plain version in "
+                                     f"{int((jm != want).sum())} cells")
+            err = float((jm - want).abs().max())
+            ms = event_ms(lambda: cuda_walk.merge_dp_walk(*args), 5, dev)
+            top = la.clamp(0, rows).to(torch.int64)
+            live = int(top.sum()) * W  # the cells of the rows the DP computes
+            # Of those the DP reads the cost only where j = i + lo + k lies
+            # in [1, lb] (elsewhere M takes NEG): k in [1 - i - lo, lb - i - lo].
+            i = torch.arange(1, rows + 1, device=la.device)[:, None]
+            k_lo = (1 - i - lo.to(torch.int64)).clamp(min=0)
+            k_hi = (lb.to(torch.int64) - i - lo.to(torch.int64)).clamp(max=W - 1)
+            read = int(((k_hi - k_lo + 1).clamp(min=0) * (i <= top)).sum())
+            bms, by = bound(read * 4 + nbytes(la, lb, lo, kmax, jm), live * OPS_PER_CELL["E"])
+            chain = 2 * int(top.max())
+            route = cuda_walk.merge_route(W)
+            r = res[f"E:{route}@{W}"]
+            detail = (f"Pp={Pp} rows={rows} W={W} ({route} route), {live} live cells ({read} cost "
+                      f"cells read): jmat equal, kernel {ms:.3f} ms = {live / ms / 1e6:.1f} GCUPS")
+            extra = dict(merge_route=route, gcups=live / ms / 1e6)
+        else:
+            dirs, la, lb, lo, ca, cb = args
+            rows, P, W = dirs.shape
+            jm, ident = cuda_walk.pair_walk(*args)
+
+            def plain():
+                j = _pair_walk_kernel(dirs, la, lb, lo)
+                return j, _pair_ident_kernel(j, ca, cb)
+
+            (jp, ip), plain_ms = timed_once(torch, plain)
+            if not (torch.equal(jm, jp) and torch.equal(ident, ip)):
+                raise AssertionError(f"kernel F ({name}): jmat or identities differ from the "
+                                     f"plain version ({int((jm != jp).sum())} jmat cells)")
+            err = float((ident - ip).abs().max()) if P else 0.0
+            ms = event_ms(lambda: cuda_walk.pair_walk(*args), 5, dev)
+            matched = jm > 0
+            at = torch.arange(1, rows + 1, device=jm.device)[:, None]
+            lowest = torch.where(matched, at, rows + 1).amin(0)
+            walked = (la.clamp(0, rows).to(torch.int64) - lowest + 1).clamp(min=0)
+            # One 32-byte sector of directions a walked row, both codes of
+            # each match, jmat and the identities once.
+            n_bytes = 32 * int(walked.sum()) + 2 * int(matched.sum()) + nbytes(la, lb, lo, jm, ident)
+            bms, by = bound(n_bytes, 0)
+            chain = int(walked.max()) if P else 0
+            r = res["F"]
+            detail = (f"P={P} rows={rows} W={W}, {int(walked.sum())} walked rows: jmat and "
+                      f"identities equal, kernel {ms:.3f} ms")
+            extra = {}
+        log(f"[kernels] {key} {name}: {detail}, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}, "
+            f"{100 * bms / ms:.2f}%), chain of {chain} dependent row steps; {r['registers']} "
+            f"registers, {r['spill_bytes']} B spilled, {r['blocks_per_sm']} blocks of "
+            f"{r['threads']} an SM")
+        out.append(dict(key=key, name=name, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                        bound_by=by, chain_rows=chain, registers=r["registers"],
+                        spill_bytes=r["spill_bytes"], **extra))
     return out
 
 
@@ -738,12 +841,20 @@ def read_counts(kernels) -> dict:
 
 
 def phase_golden(torch, st, kernels, required, dev):
+    """The golden pipeline on the card against its snapshot; kernels E and F
+    are recorded one call a (rows, W) as it runs and replayed against their
+    plain versions after it.  Returns (launch counts, E and F's rows)."""
     batch = mock_batch(
         st, ADAPTOR1_GOLDEN, nmolecules=10, nreads_range=(4, 9),
         seqlen_range=(350, 600), seed=20240817,
     )
     reset(kernels)
-    aligned, umis, groups, msa, cons, _, _ = run_pipeline(torch, st, batch, ADAPTOR1_GOLDEN, dev)
+    recorded, unrecord = record_calls(torch, "golden", "EF")
+    try:
+        aligned, umis, groups, msa, cons, _, _ = run_pipeline(
+            torch, st, batch, ADAPTOR1_GOLDEN, dev)
+    finally:
+        unrecord()
     counts = read_counts(kernels)
     snap = {
         "n_reads": int(len(batch)),
@@ -770,29 +881,29 @@ def phase_golden(torch, st, kernels, required, dev):
     if min(counts[k.symbol] for k in required) == 0:
         raise AssertionError(f"a kernel never launched in the golden run: {counts}")
     log(f"[golden] {len(want)} keys equal tests/golden/pipeline_mock.json "
-        f"({len(batch)} reads, {len(cons)} consensus reads); launches {counts}")
-    return counts
+        f"({len(batch)} reads, {len(cons)} consensus reads); launches {counts}; kernel E "
+        f"and F shapes {sorted(recorded)}")
+    return counts, walk_rows(torch, recorded, dev)
 
 
 #: Steps timed in the warm-up pass and in the host-route pass, (module,
-#: name): the plain-PyTorch device steps, the two kernels' wrappers, the
-#: two library routes and their steps, and the host-side work of the MSA
-#: stage.  The triplet extension runs in a thread pool, so its total is
-#: summed over threads and can exceed its share of the wall clock.
+#: name): the plain-PyTorch device steps, the kernels' wrappers (E and F's
+#: where ``ops/msa.py`` reaches them), the two library routes and their
+#: steps, and the host-side work of the MSA stage.  The triplet extension
+#: runs in a thread pool, so its total is summed over threads and can
+#: exceed its share of the wall clock.
 STEPS = (
     ("sarlacc_tpu_torch.api.align_internal", "qmap_walk"),
     ("sarlacc_tpu_torch.api.umi", "lev2_matrix"),
     ("sarlacc_tpu_torch.api.msa", "_build_library_device"),
     ("sarlacc_tpu_torch.api.msa", "_build_library_host"),
     ("sarlacc_tpu_torch.api.msa", "pair_maps_device"),
-    ("sarlacc_tpu_torch.ops.msa", "_pair_ident_kernel"),
     ("sarlacc_tpu_torch.ops.msa", "_arena_place_kernel"),
     ("sarlacc_tpu_torch.api.msa", "_extend_chunk_kernel"),
-    ("sarlacc_tpu_torch.ops.msa", "_pair_walk_kernel"),
+    ("sarlacc_tpu_torch.ops.cuda_walk", "pair_walk"),
     ("sarlacc_tpu_torch.ops.msa", "_merge_cost_init"),
     ("sarlacc_tpu_torch.ops.msa", "_merge_accum_kernel"),
-    ("sarlacc_tpu_torch.ops.msa", "_profile_merge_kernel"),
-    ("sarlacc_tpu_torch.ops.msa", "_merge_walk_kernel"),
+    ("sarlacc_tpu_torch.ops.cuda_walk", "merge_dp_walk"),
     ("sarlacc_tpu_torch.api.consensus", "consensus_quality_flat"),
     ("sarlacc_tpu_torch.ops.cuda_align", "dir_kernel"),
     ("sarlacc_tpu_torch.ops.msa", "banded_pair"),
@@ -880,28 +991,38 @@ def step_report(totals) -> str:
 
 def phase_pipeline(torch, st, batch, kernels, required, dev):
     """The warm-up pass (step timers and the stage profiler; it also records
-    the arguments of each distinct kernel-B launch shape), the timed pass
-    (the default, device-library route), then ``multi_read_align`` once
-    more on the timed pass's reads and groups with ``SARLACC_HOST_LIB=1``,
-    timed, then again with the step timers.  Returns (launch counts, the
-    aligned frame, the timed pass's stage seconds, {shape: banded_pair
-    arguments}, realized reads, groups)."""
+    the arguments of each distinct kernel-B launch shape and one call of
+    kernels E and F for each (rows, W), which are replayed against their
+    plain versions right after it and dropped), the timed pass (the
+    default, device-library route), then ``multi_read_align`` once more on
+    the timed pass's reads and groups with ``SARLACC_HOST_LIB=1``, timed,
+    then again with the step timers.  Returns (launch counts, the aligned
+    frame, the timed pass's stage seconds, {shape: banded_pair arguments},
+    realized reads, groups, kernel E and F's rows)."""
     from sarlacc_tpu_torch.utils import PipelineProfiler, get_profiler, set_profiler
 
     set_profiler(PipelineProfiler())
-    recorded, unrecord = record_calls(torch, "pipeline", "B")
+    # The recording wraps the step timers: E and F's steps hold no copy.
     totals, restore = timed_steps(torch)
+    recorded, unrecord = record_calls(torch, "pipeline", "BEF")
     try:
         t0 = time.perf_counter()
         run_pipeline(torch, st, batch, ADAPTOR1_BENCH, dev)
         warm_s = time.perf_counter() - t0
     finally:
-        restore()
         unrecord()
-    pair_calls = {name: args for name, (_, args) in recorded.items()}
+        restore()
+    pair_calls = {name: args for name, (key, args) in recorded.items() if key == "B"}
+    walk_calls = {name: call for name, call in recorded.items() if call[0] in "EF"}
+    del recorded
     log(f"[pipeline] warm-up pass {warm_s:.3f} s; synchronized step times: "
-        f"{step_report(totals)}; kernel-B shapes {sorted(pair_calls)}")
+        f"{step_report(totals)}; kernel-B shapes {sorted(pair_calls)}; kernel E and F "
+        f"shapes {sorted(walk_calls)}")
     log("[pipeline] stage profiler after the warm-up pass:\n" + get_profiler().report())
+    # E and F's copies (kernel F's are kernel B's direction tensors) go
+    # before the timed pass, so they are not in its peak memory.
+    wrows = walk_rows(torch, walk_calls, dev)
+    del walk_calls
 
     reset(kernels)
     torch.cuda.reset_peak_memory_stats()
@@ -953,7 +1074,7 @@ def phase_pipeline(torch, st, batch, kernels, required, dev):
         restore()
     log(f"[pipeline] SARLACC_HOST_LIB=1 route with synchronized step times: "
         f"{step_report(totals)}")
-    return counts, aligned, stages, pair_calls, reads, filt
+    return counts, aligned, stages, pair_calls, reads, filt, wrows
 
 
 def phase_msa_library(torch, st, reads, filt, dev, n_slice=20):
@@ -1647,10 +1768,12 @@ def main(argv=None) -> int:
         return 2
     from sarlacc_tpu_torch.ops.cuda_align import DIR_KERNEL, SCORE_KERNEL, SEGMENTS_KERNEL
     from sarlacc_tpu_torch.ops.cuda_msa import PAIR_KERNEL
+    from sarlacc_tpu_torch.ops.cuda_walk import MERGE_KERNEL, WALK_KERNEL
 
     from sarlacc_tpu_torch.tools import op_mix, op_rates, score_ablation
 
-    kernels = (DIR_KERNEL, PAIR_KERNEL, SCORE_KERNEL, SEGMENTS_KERNEL)
+    kernels = (DIR_KERNEL, PAIR_KERNEL, SCORE_KERNEL, SEGMENTS_KERNEL, MERGE_KERNEL, WALK_KERNEL)
+    main_path = (DIR_KERNEL, PAIR_KERNEL, MERGE_KERNEL, WALK_KERNEL)
     smi = phase_environment(torch)
     phase_build(kernels + tuple(score_ablation.KERNELS.values()) + tuple(op_mix.KERNELS.values())
                 + tuple(op_rates.KERNELS.values()))
@@ -1662,11 +1785,14 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     krows = phase_kernels(torch, st, bench, dev)
     krows += phase_score_kernels(torch, st, demux, bench, dev)
-    # Each path runs with every count at 0 and reports all four kernels.
-    by_path = {"golden": phase_golden(torch, st, kernels, (DIR_KERNEL, PAIR_KERNEL), dev)}
-    by_path["pipeline"], aligned, stages, pair_calls, reads, filt = phase_pipeline(
-        torch, st, bench, kernels, (DIR_KERNEL, PAIR_KERNEL), dev)
+    # Each path runs with every count at 0 and reports all six kernels.
+    by_path = {}
+    by_path["golden"], grows = phase_golden(torch, st, kernels, main_path, dev)
+    krows += grows  # kernels E and F at the golden run's own shapes
+    by_path["pipeline"], aligned, stages, pair_calls, reads, filt, wrows = phase_pipeline(
+        torch, st, bench, kernels, main_path, dev)
     krows += pair_rows(torch, pair_calls, dev)  # kernel B at the pipeline's own shapes
+    krows += wrows  # kernels E and F at the pipeline's own shapes
     if save_pair_shapes:
         torch.save(pair_calls, save_pair_shapes)
         log(f"[pipeline] kernel-B launch arguments saved to {save_pair_shapes}")
@@ -1701,13 +1827,16 @@ def main(argv=None) -> int:
         "B": (PAIR_KERNEL, "sarlacc_tpu/ops/pallas_msa.py:99"),
         "C": (SCORE_KERNEL, "sarlacc_tpu/ops/pallas_align.py:100"),
         "D": (SEGMENTS_KERNEL, "sarlacc_tpu/ops/pallas_align.py:564"),
+        "E": (MERGE_KERNEL, "sarlacc_tpu/ops/msa.py:938"),
+        "F": (WALK_KERNEL, "sarlacc_tpu/ops/msa.py:158"),
     }
     report = []
     for r in krows:
         kern, repl = replaces[r["key"]]
         launches, each = path_launches(kern.symbol)
-        extra = {k: r[k] for k in ("gcups", "tile", "lanes", "passes", "block_ms",
-                                   "registers", "spill_bytes", "achieved_occupancy") if k in r}
+        extra = {k: r[k] for k in ("gcups", "tile", "lanes", "passes", "block_ms", "merge_route",
+                                   "chain_rows", "registers", "spill_bytes",
+                                   "achieved_occupancy") if k in r}
         if "route" in r:  # kernel B's route within its CUDA source; "route" names the language
             extra["pair_route"] = r["route"]
         report.append({

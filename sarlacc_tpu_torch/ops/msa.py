@@ -5,23 +5,26 @@ Counterpart of ``sarlacc_tpu/ops/msa.py``:
 * :func:`banded_pair_align` — the pairwise library workload of the
   host-library route: read pairs bucketed by (rows, band width), kernel B
   per bucket chunk (:func:`..ops.cuda_msa.banded_pair`), then the Gotoh
-  walk (:func:`_pair_walk_kernel`) on the device; only the per-row matched
+  walk (:func:`_pair_walk`) on the device; only the per-row matched
   positions come back.
 * :func:`pair_maps_device`, :func:`_extend_chunk_kernel` — the device
   library (the JAX package's default route): the same launches, but each
   walk's matched positions stay on the device as forward and reverse
   position maps (:func:`_arena_place_kernel`) beside a float32 identity per
-  pair (:func:`_pair_ident_kernel`), and the consistency extension composes
+  pair (computed by the same walk), and the consistency extension composes
   those maps with gathers and small sorts into the packed entry table.
 * :func:`merge_wave_from_library` — one wave of progressive profile merges:
   blank banded cost planes (:func:`_merge_cost_init`), the library weights
   added in through the position->column maps (:func:`_merge_accum_kernel`),
-  the gapless max-weight-trace DP (:func:`_profile_merge_kernel`) and its
-  walk (:func:`_merge_walk_kernel`).
+  then the gapless max-weight-trace DP and its walk (:func:`_merge_dp_walk`).
 
-The walks, the merge DP, the accumulation and the library steps are plain
-PyTorch on the device: one small launch per row or step.  The JAX
-package's scans become Python loops here.
+The pair walk with its identities and the merge DP with its walk are
+hand-written kernels on CUDA tensors (F and E, :mod:`.cuda_walk`); on CPU
+tensors they run their plain versions, :func:`_pair_walk_kernel` +
+:func:`_pair_ident_kernel` and :func:`_profile_merge_kernel` +
+:func:`_merge_walk_kernel`, which are Python loops over the DP rows, as
+the JAX package's scans are.  The accumulation, the cost planes and the
+library steps are plain PyTorch on the device.
 
 Under an active mesh (:mod:`..parallel.context`) each kernel-B launch's
 pairs split over the shards: kernel B, the walk and the identities run on
@@ -38,6 +41,7 @@ import torch
 from ..device import memory_budget, resolve_device
 from ..parallel.context import active_mesh, shard_bounds
 from ..utils.profiling import StageStats, get_profiler
+from . import cuda_walk
 from .cuda_msa import NEG, banded_pair
 
 __all__ = [
@@ -234,9 +238,19 @@ def _pair_bucket_on(
         ca, cb, lens_a_d, lens_b_d, lo_d, dev(np.asarray(hi) - np.asarray(lo)),
         match, mismatch, gap_open, gap_ext, rows_b, W_b,
     )
-    jmat = _pair_walk_kernel(dirs, lens_a_d, lens_b_d, lo_d)
+    jmat, ident = _pair_walk(dirs, lens_a_d, lens_b_d, lo_d, ca, cb)
     del dirs
-    return scores, jmat, _pair_ident_kernel(jmat, ca, cb)
+    return scores, jmat, ident
+
+
+def _pair_walk(dirs, lens_a, lens_b, lo, codes_a, codes_b):
+    """(jmat int32 [rows, P], identity float32 [P]) of one kernel-B launch:
+    kernel F (:func:`.cuda_walk.pair_walk`) on CUDA tensors,
+    :func:`_pair_walk_kernel` then :func:`_pair_ident_kernel` on CPU ones."""
+    if dirs.is_cuda:
+        return cuda_walk.pair_walk(dirs, lens_a, lens_b, lo, codes_a, codes_b)
+    jmat = _pair_walk_kernel(dirs, lens_a, lens_b, lo)
+    return jmat, _pair_ident_kernel(jmat, codes_a, codes_b)
 
 
 def _pair_ident_kernel(jmat, codes_a, codes_b):
@@ -411,6 +425,16 @@ def _merge_walk_kernel(dirs, lens_a, lens_b, lo):
     return jmat
 
 
+def _merge_dp_walk(cost, la, lb, lo, kmax):
+    """jmat int32 [rows, P] of one merge wave's cost planes: kernel E
+    (:func:`.cuda_walk.merge_dp_walk`) on CUDA tensors,
+    :func:`_profile_merge_kernel` then :func:`_merge_walk_kernel` on CPU
+    ones.  ``la``, ``lb``, ``lo``, ``kmax`` int32 [P]."""
+    if cost.is_cuda:
+        return cuda_walk.merge_dp_walk(cost, la, lb, lo, kmax)
+    return _merge_walk_kernel(_profile_merge_kernel(cost, la, lb, lo, kmax), la, lb, lo)
+
+
 def _merge_cost_init(la, kmax, rows: int, width: int):
     """NEG outside the band/live rows, 0 inside — the DP's blank planes."""
     dev = la.device
@@ -533,7 +557,7 @@ def merge_wave_from_library(lib_dev, merges_desc, rows_b, W_b):
     # A trailing 0 ("unmapped") catches any out-of-range lookup.
     p2ca = _t(np.concatenate(p2ca_parts + [np.zeros(1, np.int32)]), torch.int32)
     p2cb = _t(np.concatenate(p2cb_parts + [np.zeros(1, np.int32)]), torch.int32)
-    la_d, lb_d, lo_d, km_d = _t(la), _t(lb), _t(lo), _t(kmax)
+    la_d, lb_d, lo_d, km_d = (_t(x, torch.int32) for x in (la, lb, lo, kmax))
 
     cost = _merge_cost_init(la_d, km_d, rows_b, W_b)
     w_inv_t = torch.tensor(np.float32(w_inv), dtype=torch.float32, device=dev)
@@ -542,9 +566,7 @@ def merge_wave_from_library(lib_dev, merges_desc, rows_b, W_b):
             lib_tab, w_inv_t, cost, seg, p2ca, p2cb,
             c0, min(c0 + MERGE_ENTRY_CHUNK, total),
         )
-    dirs = _profile_merge_kernel(cost, la_d, lb_d, lo_d, km_d)
-    del cost
-    return _merge_walk_kernel(dirs, la_d, lb_d, lo_d)
+    return _merge_dp_walk(cost, la_d, lb_d, lo_d, km_d)
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,9 @@ JAX, so it also runs on a machine that has only PyTorch:
 
 (``--noconftest`` skips ``tests/conftest.py``, which imports JAX.)  Kernel A
 and kernel B must give directions bit-identical and scores equal to their
-plain PyTorch versions on the same card, and kernels C and D scores equal
-to theirs, across the shapes each kernel's launch configuration branches
-on.
+plain PyTorch versions on the same card, kernels C and D scores equal
+to theirs, and kernels E and F jmat and identities equal to theirs, across
+the shapes each kernel's launch configuration branches on.
 """
 
 import numpy as np
@@ -38,7 +38,8 @@ from sarlacc_tpu_torch.ops.cuda_align import (
     score_tile,
     segments_kernel,
 )
-from sarlacc_tpu_torch.ops import cuda_msa
+from sarlacc_tpu_torch.ops import cuda_msa, cuda_walk
+from sarlacc_tpu_torch.ops import msa as port_msa
 from sarlacc_tpu_torch.ops.cuda_msa import (
     PAIR_KERNEL,
     banded_pair,
@@ -677,3 +678,238 @@ def test_ranks_with_a_card_each_equal_one_process(tmp_path):
             pytest.fail("the ranks did not finish within 240 s")
     res = json.loads((tmp_path / "cards.json").read_text())
     assert res == {"backend": "nccl", "device": "cuda:0", "equal": True}
+
+
+def _merge_inputs(rng, Pp, rows, W, bw=100):
+    """A merge wave as ``merge_wave_from_library`` hands it to kernel E:
+    ``la`` near ``rows`` (some far below), bands inside W, weights that
+    are sums of a few quantised library weights, NEG outside the band and
+    past ``la``; the last merges padded (la = 0)."""
+    spread = min(40, W // 8)
+    la = rng.integers(rows // 4, rows + 1, Pp)
+    lb = np.clip(la + rng.integers(-spread, spread + 1, Pp), 1, None)
+    bw = min(bw, (W - 2 * spread - 2) // 2)
+    diff = lb - la
+    lo = np.minimum(0, diff) - bw
+    kmax = np.maximum(0, diff) + bw - lo
+    assert int(kmax.max()) < W
+    la[-3:] = lb[-3:] = lo[-3:] = kmax[-3:] = 0
+    live = (np.arange(1, rows + 1)[None, :, None] <= la[:, None, None]) & (
+        np.arange(W)[None, None, :] <= kmax[:, None, None])
+    w = (rng.integers(0, 6, (Pp, rows, W)) * np.float32(100 / 3)).astype(np.float32)
+    cost = np.where(live, w, np.float32(-1.0e9)).astype(np.float32)
+    return cost, *(x.astype(np.int32) for x in (la, lb, lo, kmax))
+
+
+def _merge_plain(args):
+    dirs = port_msa._profile_merge_kernel(*args)
+    return dirs, port_msa._merge_walk_kernel(dirs, *args[1:4])
+
+
+def _hold_merge(args):
+    """Kernel E against its plain version: jmat equal, and every choice byte
+    of every live row."""
+    before = cuda_walk.MERGE_KERNEL.launches
+    jm, choices = cuda_walk._launch_merge(*args)
+    assert cuda_walk.MERGE_KERNEL.launches == before + 1
+    dirs, want = _merge_plain(args)
+    torch.cuda.synchronize()
+    assert torch.equal(jm, want)
+    la = args[1].cpu().tolist()
+    for p, n in enumerate(la):
+        assert torch.equal(choices[:n, p], dirs[:n, p]), p
+    return jm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,W,Pp", [(512, 256, 256), (1024, 256, 512), (1024, 512, 128),
+                                       (1024, 1024, 32), (64, 32, 16), (128, 4096, 16)])
+def test_merge_kernel_matches_plain(cuda_device, rows, W, Pp):
+    """Kernel E at the pipeline's bucket shapes (rows 512 / 1024, W 256 /
+    512 on the warp route, 1024 on the block route) and at the extremes of
+    both routes, bit-equal to the plain DP + walk."""
+    rng = np.random.default_rng(rows + W)
+    args = [torch.as_tensor(a, device=cuda_device) for a in _merge_inputs(rng, Pp, rows, W)]
+    jm = _hold_merge(args)
+    assert bool(jm.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,W", [(256, 2048), (64, 8192)])
+def test_merge_kernel_block_route_wide_bands(cuda_device, rows, W):
+    """The block route at wider bands (8 and 32 chunks a row), against the
+    plain version."""
+    rng = np.random.default_rng(rows + W + 1)
+    args = [torch.as_tensor(a, device=cuda_device) for a in _merge_inputs(rng, 40, rows, W)]
+    _hold_merge(args)
+
+
+@pytest.mark.cuda
+def test_merge_kernel_past_kernel_b_widths(cuda_device):
+    """A wave of short profiles (19-32 columns) merged with long ones (60 000
+    to 120 000 columns, as a group of a few unrelated ~32 kb reads gives):
+    W = 131 072 over 32 rows, past kernel B's widest band, on the block
+    route, against the plain version."""
+    rng = np.random.default_rng(131072)
+    Pp, rows, W, bw = 16, 32, 131072, 100
+    la = rng.integers(19, rows + 1, Pp)
+    lb = rng.integers(60_000, 120_000, Pp)
+    lo = np.minimum(0, lb - la) - bw
+    kmax = np.maximum(0, lb - la) + bw - lo
+    assert int(kmax.max()) < W and cuda_walk.merge_route(W) == "block"
+    la[-4:] = lb[-4:] = lo[-4:] = kmax[-4:] = 0
+    live = (np.arange(1, rows + 1)[None, :, None] <= la[:, None, None]) & (
+        np.arange(W)[None, None, :] <= kmax[:, None, None])
+    w = rng.integers(0, 6, (Pp, rows, W), dtype=np.int8) * np.float32(100 / 3)
+    cost = np.where(live, w, np.float32(-1.0e9)).astype(np.float32)
+    args = [torch.as_tensor(cost, device=cuda_device)] + [
+        torch.as_tensor(x.astype(np.int32), device=cuda_device) for x in (la, lb, lo, kmax)]
+    jm = _hold_merge(args)
+    assert bool(jm[:, :-4].any()) and not bool(jm[:, -4:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [32, 512, 1024])
+def test_merge_kernel_on_adversarial_waves(cuda_device, W):
+    """Tie-heavy integer costs, the walk's first lookup clamped at both edges
+    of the band (k0 past W - 1 and below 0), la far below rows."""
+    rng = np.random.default_rng(W + 5)
+    cost, la, lb, lo, kmax = _merge_inputs(rng, 24, 96, W, bw=8)
+    cost = np.where(cost > -1e8, np.round(cost / 100) * 25, cost).astype(np.float32)
+    lo[0], kmax[0] = lb[0] - la[0] - W - 3, W - 1
+    lo[1], kmax[1] = lb[1] - la[1] + 4, W - 1
+    la[2] = 5
+    _hold_merge([torch.as_tensor(a, device=cuda_device) for a in (cost, la, lb, lo, kmax)])
+
+
+def _walk_plain(dirs, la, lb, lo, ca, cb):
+    jm = port_msa._pair_walk_kernel(dirs, la, lb, lo)
+    return jm, port_msa._pair_ident_kernel(jm, ca, cb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,W,P", [(512, 256, 6078), (1024, 256, 32768), (1024, 512, 3886),
+                                      (512, 1024, 2), (64, 32, 300)])
+def test_walk_kernel_matches_plain(cuda_device, rows, W, P):
+    """Kernel F over kernel B's directions at the pipeline's launch shapes
+    (P x rows x W), jmat and identities bit-equal to the plain walk +
+    identity."""
+    rng = np.random.default_rng(rows + W + P)
+    arrays = _pairs(rng, P, rows, W, bw=min(100, (W - 26) // 2))
+    ca, cb, la, lb, lo, km = (torch.as_tensor(a, device=cuda_device) for a in arrays)
+    _, dirs = pair_kernel(ca, cb, la, lb, lo, km, 0.0, -1.0, 5.0, 1.0, rows, W)
+    before = cuda_walk.WALK_KERNEL.launches
+    jm, ident = cuda_walk.pair_walk(dirs, la, lb, lo, ca, cb)
+    assert cuda_walk.WALK_KERNEL.launches == before + 1
+    jm_p, id_p = _walk_plain(dirs, la, lb, lo, ca, cb)
+    torch.cuda.synchronize()
+    assert torch.equal(jm, jm_p)
+    assert torch.equal(ident, id_p)
+    assert float(ident.mean()) > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [32, 1024])
+def test_walk_kernel_on_adversarial_planes(cuda_device, W):
+    """Random legal direction planes with long horizontal runs, the start
+    cell clamped at both edges, A's codes narrower than the rows and B's
+    index clamped."""
+    rng = np.random.default_rng(W)
+    rows, P = 64, 200
+    choice = rng.integers(0, 3, (rows, P, W))
+    choice = np.where((rng.random((rows, P, 1)) < 0.4) & (rng.random((rows, P, W)) < 0.9), 1, choice)
+    hext = (rng.random((rows, P, W)) < 0.93).astype(np.int64)
+    dirs = (choice + (hext << 2) + (rng.integers(0, 2, (rows, P, W)) << 3)).astype(np.int8)
+    la = rng.integers(1, rows // 2, P).astype(np.int32)
+    lb = rng.integers(1, rows // 2, P).astype(np.int32)
+    lo = (np.minimum(0, lb - la) - 8).astype(np.int32)
+    lo[0], lo[1] = lb[0] - la[0] - W - 4, lb[1] - la[1] + 3
+    ca = rng.integers(0, 4, (P, rows // 3)).astype(np.int8)
+    cb = rng.integers(0, 4, (P, rows // 4)).astype(np.int8)
+    args = [torch.as_tensor(a, device=cuda_device) for a in (dirs, la, lb, lo, ca, cb)]
+    jm, ident = cuda_walk.pair_walk(*args)
+    jm_p, id_p = _walk_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(jm, jm_p) and torch.equal(ident, id_p)
+
+
+@pytest.mark.cuda
+def test_walk_kernel_ends_on_choice_three(cuda_device):
+    """A choice of 3 (never written by kernel B; the plain loop would spin)
+    ends its row's chain unresolved, and the launch finishes."""
+    dirs = torch.zeros((8, 1, 32), dtype=torch.int8, device=cuda_device)
+    dirs[4, 0, 3] = 3
+    ints = [torch.tensor([v], dtype=torch.int32, device=cuda_device) for v in (6, 6, -3)]
+    codes = [torch.zeros((1, n), dtype=torch.int8, device=cuda_device) for n in (8, 8)]
+    jm, ident = cuda_walk.pair_walk(dirs, *ints, *codes)
+    torch.cuda.synchronize()
+    assert jm[:, 0].tolist() == [1, 2, 3, 4, 0, 6, 0, 0] and float(ident[0]) == 1.0
+
+
+@pytest.mark.cuda
+def test_walk_kernel_on_shards_equals_solo(cuda_device):
+    """A kernel-B bucket split over four shards of the card (``make_mesh(4)``):
+    kernel F on each shard's pairs, the gathered scores, jmat and identities
+    equal to the solo call's."""
+    from sarlacc_tpu_torch.parallel import make_mesh
+    from sarlacc_tpu_torch.parallel.context import use_mesh
+
+    rng = np.random.default_rng(77)
+    ca, cb, la, lb, lo, km = _pairs(rng, 1001, 512, 256, bw=100)
+    args = (ca, la, cb, lb, lo, lo + km, 0.0, -1.0, 5.0, 1.0, 512, 256)
+    solo = port_msa._run_pair_bucket(*args, cuda_device)
+    before = cuda_walk.WALK_KERNEL.launches
+    with use_mesh(make_mesh(4)):
+        meshed = port_msa._run_pair_bucket(*args, cuda_device)
+    assert cuda_walk.WALK_KERNEL.launches == before + 4
+    for a, b in zip(meshed, solo):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_plain_walks_never_see_a_card_tensor(cuda_device, monkeypatch):
+    """``multi_read_align`` on the card (both library routes) launches
+    kernels E and F, and the plain walks, merge DP and identity, made to
+    raise on a CUDA tensor, are never reached."""
+    from sarlacc_tpu_torch.api.msa import multi_read_align
+    for name in ("_pair_walk_kernel", "_pair_ident_kernel", "_profile_merge_kernel",
+                 "_merge_walk_kernel"):
+        real = getattr(port_msa, name)
+
+        def guard(first, *rest, _real=real, _name=name):
+            if first.is_cuda:
+                raise AssertionError(f"{_name} got a CUDA tensor")
+            return _real(first, *rest)
+
+        monkeypatch.setattr(port_msa, name, guard)
+    rng = np.random.default_rng(3)
+    seqs, groups = [], []
+    for n, length in ((6, 150), (3, 90), (9, 240)):
+        ref = rng.integers(0, 4, length)
+        groups.append(list(range(len(seqs), len(seqs) + n)))
+        for _ in range(n):
+            s = ref.copy()
+            mut = rng.random(length) < 0.06
+            s[mut] = rng.integers(0, 4, int(mut.sum()))
+            seqs.append("".join("ACGT"[c] for c in s[rng.random(length) >= 0.03]))
+    batch = SeqBatch.from_strings(seqs)
+    monkeypatch.delenv("SARLACC_HOST_LIB", raising=False)
+    for host in ("", "1"):
+        if host:
+            monkeypatch.setenv("SARLACC_HOST_LIB", host)
+        before = (cuda_walk.MERGE_KERNEL.launches, cuda_walk.WALK_KERNEL.launches)
+        card = multi_read_align(batch, groups=groups, bandwidth=30, device=cuda_device)
+        after = (cuda_walk.MERGE_KERNEL.launches, cuda_walk.WALK_KERNEL.launches)
+        assert after[0] > before[0] and after[1] > before[1], host
+        assert [len(a) for a in card["alignments"]] == [6, 3, 9]
+
+
+@pytest.mark.cuda
+def test_walk_kernel_resources(cuda_device):
+    """Kernels F and E as compiled fit the SM and spill nothing."""
+    res = cuda_walk.walk_kernel_resources((32, 256, 512, 1024, 131072))
+    assert sorted(res) == sorted(["F", "E:warp@32", "E:warp@256", "E:warp@512", "E:block@1024",
+                                  "E:block@131072"])
+    for name, r in res.items():
+        assert 0 < r["registers"] <= 255 and r["blocks_per_sm"] >= 1, name
+        assert r["spill_bytes"] == 0, (name, r)

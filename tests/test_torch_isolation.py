@@ -65,7 +65,7 @@ def test_native_and_kernel_sources_lie_in_the_port():
     assert os.path.isfile(host)
     kernels = _port_kernels()
     assert {"sarlacc_dir_kernel", "sarlacc_pair_kernel", "sarlacc_score_kernel",
-            "sarlacc_segments_kernel"} <= set(kernels)
+            "sarlacc_segments_kernel", "sarlacc_merge_kernel", "sarlacc_walk_kernel"} <= set(kernels)
     for symbol, k in kernels.items():
         src = os.path.realpath(k.source)
         assert src.startswith(port + os.sep) and os.path.isfile(src), (symbol, src)

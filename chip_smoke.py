@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--save-pair-shapes FILE]
+    python3 chip_smoke.py [--save-shapes FILE]
 
-(``--save-pair-shapes`` keeps the arguments of each kernel-B launch shape of
-the pipeline's warm-up pass in FILE, for ``python -m
+(``--save-shapes`` keeps the arguments of each kernel-B launch shape of the
+pipeline's warm-up pass and each of its merge waves, with the library
+entries it reads, in FILE, for ``python -m
 sarlacc_tpu_torch.tools.kernel_turns``.)  Phases, each printing its result
 on its own line:
 
@@ -41,10 +42,13 @@ on its own line:
 5. pipeline: the ~10k-read workload of bench.py (950 molecules, 8-14 reads
    each, 400-700 bp, seed 7, 12 bp UMI): one warm-up pass that also times
    the plain-PyTorch device steps, the kernels' wrappers and both library
-   routes' steps, prints the stage profiler's report and records kernel
-   B's launch shapes and one call of kernels E (merge DP + walk) and F
-   (pair walk + identity) for each (rows, band width), each then replayed
-   against its plain version (jmat and identities bit-equal), then
+   routes' steps, prints the stage profiler's report and the merge waves'
+   peak allocated memory, and records kernel B's launch shapes and one
+   call of kernels E (a merge wave from its sorted library entries: cost
+   rows built on chip, DP, walk) and F (pair walk + identity) for each
+   (rows, band width), each then replayed against its plain version (jmat
+   and identities bit-equal; E's plain version builds the float32 cost
+   planes and adds the entries in order), then
    one timed pass (the default, device-library route of multi_read_align)
    with per-stage seconds, peak allocated memory and the kernels' launch
    counts, then multi_read_align on its reads and groups with
@@ -107,10 +111,12 @@ max |diff|, its launches over those runs (``launches``, and per path in
 ``launches_by_path``), registers and spill bytes a thread, and
 ``bound_ms``: the larger of its compulsory bytes
 (each input read once, each output written once; of the cost planes only
-the slots the references select, at the rows the DP computes, and for
-kernel E only the cells of live rows whose column lies in the other
-profile; for the walks one 32-byte sector of directions a walked row) over 3.35
-TB/s and its float operations over 67 TFLOP/s (the H100 SXM data sheet),
+the slots the references select, at the rows the DP computes; for kernel E
+its kept library entries, 4-byte cell and 4-byte weight each, its row
+pointers and bands and jmat; for the walks one 32-byte sector of
+directions a walked row) over 3.35 TB/s and its float operations (for E
+six a live cell and one add an entry) over 67 TFLOP/s (the H100 SXM data
+sheet),
 with ``bound_by`` naming the larger; the walks' rows also give
 ``chain_rows``, the longest chain of dependent row steps, which bounds
 them more than either.  ``library_ms`` is null: no single PyTorch call
@@ -427,11 +433,13 @@ def call_shape(key, args, with_pairs=True) -> str:
     if key == "B":
         pairs = f"P{int(args[0].shape[0])}x" if with_pairs else ""
         return f"{pairs}R{int(args[10])}xW{int(args[11])}"
-    if key in "EF":  # E: cost [Pp, rows, W]; F: dirs [rows, P, W], kernel B's launch shape
-        shape = args[0].shape
-        P, rows = (shape[0], shape[1]) if key == "E" else (shape[1], shape[0])
+    if key in "EF":  # E: cols, w, rowptr, 4 x [Pp], rows, W; F: dirs [rows, P, W] (B's shape)
+        if key == "E":
+            P, rows, W = args[3].shape[0], args[7], args[8]
+        else:
+            rows, P, W = args[0].shape
         pairs = f"P{int(P)}x" if with_pairs else ""
-        return f"{key}:{pairs}R{int(rows)}xW{int(shape[2])}"
+        return f"{key}:{pairs}R{int(rows)}xW{int(W)}"
     if key == "D":  # modes, mask, segs, costm, costmm, codes_k, lens_k
         l1, n_pad = args[5].shape
         return f"nseg{len(args[2])}xR{int(args[0].shape[0])}xl1{l1}xN{n_pad}"
@@ -589,24 +597,23 @@ def pair_rows(torch, cases, dev):
 def walk_rows(torch, cases, dev):
     """Kernels E and F at each recorded ``name -> (key, arguments)`` call
     against their plain versions (run once a shape; jmat and identities
-    bit-equal, tolerance 0), with CUDA-event times, the bound and the
-    longest chain of dependent row steps: for E the DP's live rows then the
-    walk's, for F the rows one pair walks."""
+    bit-equal, tolerance 0; E's is ``_merge_entries_plain``: the blank cost
+    planes, the entries added in order, the plain DP and walk), with
+    CUDA-event times, the bound and the longest chain of dependent row
+    steps: for E the DP's live rows then the walk's, for F the rows one
+    pair walks."""
     from sarlacc_tpu_torch.ops import cuda_walk
-    from sarlacc_tpu_torch.ops.msa import (
-        _merge_walk_kernel, _pair_ident_kernel, _pair_walk_kernel, _profile_merge_kernel,
-    )
+    from sarlacc_tpu_torch.ops.msa import _merge_entries_plain, _pair_ident_kernel, _pair_walk_kernel
 
-    widths = sorted({int(a[0].shape[2]) for k, a in cases.values() if k == "E"})
+    widths = sorted({int(a[8]) for k, a in cases.values() if k == "E"})
     res = cuda_walk.walk_kernel_resources(widths or (256,))
     out = []
     for name, (key, args) in cases.items():
         if key == "E":
-            cost, la, lb, lo, kmax = args
-            Pp, rows, W = cost.shape
+            cols, w, rowptr, la, lb, lo, kmax, rows, W = args
+            Pp = la.shape[0]
             jm = cuda_walk.merge_dp_walk(*args)
-            want, plain_ms = timed_once(torch, lambda: _merge_walk_kernel(
-                _profile_merge_kernel(*args), la, lb, lo))
+            want, plain_ms = timed_once(torch, lambda: _merge_entries_plain(*args))
             torch.cuda.synchronize()
             if not torch.equal(jm, want):
                 raise AssertionError(f"kernel E ({name}): jmat differs from the plain version in "
@@ -615,19 +622,17 @@ def walk_rows(torch, cases, dev):
             ms = event_ms(lambda: cuda_walk.merge_dp_walk(*args), 5, dev)
             top = la.clamp(0, rows).to(torch.int64)
             live = int(top.sum()) * W  # the cells of the rows the DP computes
-            # Of those the DP reads the cost only where j = i + lo + k lies
-            # in [1, lb] (elsewhere M takes NEG): k in [1 - i - lo, lb - i - lo].
-            i = torch.arange(1, rows + 1, device=la.device)[:, None]
-            k_lo = (1 - i - lo.to(torch.int64)).clamp(min=0)
-            k_hi = (lb.to(torch.int64) - i - lo.to(torch.int64)).clamp(max=W - 1)
-            read = int(((k_hi - k_lo + 1).clamp(min=0) * (i <= top)).sum())
-            bms, by = bound(read * 4 + nbytes(la, lb, lo, kmax, jm), live * OPS_PER_CELL["E"])
+            kept = int(rowptr[-1])
+            # Each kept entry's cell and weight once (4 + 4 bytes), the row
+            # pointers, the bands and jmat; one add an entry.
+            bms, by = bound(8 * kept + nbytes(rowptr, la, lb, lo, kmax, jm),
+                            live * OPS_PER_CELL["E"] + kept)
             chain = 2 * int(top.max())
             route = cuda_walk.merge_route(W)
             r = res[f"E:{route}@{W}"]
-            detail = (f"Pp={Pp} rows={rows} W={W} ({route} route), {live} live cells ({read} cost "
-                      f"cells read): jmat equal, kernel {ms:.3f} ms = {live / ms / 1e6:.1f} GCUPS")
-            extra = dict(merge_route=route, gcups=live / ms / 1e6)
+            detail = (f"Pp={Pp} rows={rows} W={W} ({route} route), {live} live cells, {kept} "
+                      f"entries: jmat equal, kernel {ms:.3f} ms = {live / ms / 1e6:.1f} GCUPS")
+            extra = dict(merge_route=route, gcups=live / ms / 1e6, entries=kept)
         else:
             dirs, la, lb, lo, ca, cb = args
             rows, P, W = dirs.shape
@@ -887,8 +892,9 @@ def phase_golden(torch, st, kernels, required, dev):
 
 
 #: Steps timed in the warm-up pass and in the host-route pass, (module,
-#: name): the plain-PyTorch device steps, the kernels' wrappers (E and F's
-#: where ``ops/msa.py`` reaches them), the two library routes and their
+#: name): the plain-PyTorch device steps (for a merge wave the entry decode,
+#: sort and row pointers, ``_merge_entries``), the kernels' wrappers (E and
+#: F's where ``ops/msa.py`` reaches them), the two library routes and their
 #: steps, and the host-side work of the MSA stage.  The triplet extension
 #: runs in a thread pool, so its total is summed over threads and can
 #: exceed its share of the wall clock.
@@ -901,8 +907,7 @@ STEPS = (
     ("sarlacc_tpu_torch.ops.msa", "_arena_place_kernel"),
     ("sarlacc_tpu_torch.api.msa", "_extend_chunk_kernel"),
     ("sarlacc_tpu_torch.ops.cuda_walk", "pair_walk"),
-    ("sarlacc_tpu_torch.ops.msa", "_merge_cost_init"),
-    ("sarlacc_tpu_torch.ops.msa", "_merge_accum_kernel"),
+    ("sarlacc_tpu_torch.ops.msa", "_merge_entries"),
     ("sarlacc_tpu_torch.ops.cuda_walk", "merge_dp_walk"),
     ("sarlacc_tpu_torch.api.consensus", "consensus_quality_flat"),
     ("sarlacc_tpu_torch.ops.cuda_align", "dir_kernel"),
@@ -989,29 +994,87 @@ def step_report(totals) -> str:
     )
 
 
-def phase_pipeline(torch, st, batch, kernels, required, dev):
+def record_waves(torch, keep=False):
+    """Wrap ``api/msa.py``'s ``merge_wave_from_library``: each wave's peak
+    allocated memory (the peak counter reset before it), and with ``keep``
+    a host copy of every wave, its library cut down to the entries the wave
+    reads (for ``tools/kernel_turns.py``).  Returns (stats, {name: (lib,
+    descs, rows, W)}, undo)."""
+    import numpy as np
+
+    from sarlacc_tpu_torch.api import msa as api_msa
+
+    orig = api_msa.merge_wave_from_library
+    stats = {"waves": 0, "peak": 0, "above": 0, "largest": None}
+    kept = {}
+
+    def recording(lib, descs, rows, W):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = orig(lib, descs, rows, W)
+        peak = torch.cuda.max_memory_allocated()
+        P = len(descs)
+        stats["waves"] += 1
+        stats["peak"] = max(stats["peak"], peak)
+        stats["above"] = max(stats["above"], peak - base)
+        if stats["largest"] is None or P * rows * W > np.prod(stats["largest"]):
+            stats["largest"] = (P, rows, W)
+        if keep:
+            tab, w_inv = lib
+            parts, cut, at = [], [], 0
+            for d in descs:
+                segs = []
+                for (start, length, aoff, boff, swap) in d["segments"]:
+                    parts.append(tab[start : start + length].cpu())
+                    segs.append((at, length, aoff, boff, swap))
+                    at += length
+                cut.append({**d, "segments": segs})
+            kept[f"E:P{P}xR{rows}xW{W}"] = ((torch.cat(parts), w_inv), cut, rows, W)
+        return out
+
+    api_msa.merge_wave_from_library = recording
+
+    def restore():
+        api_msa.merge_wave_from_library = orig
+
+    return stats, kept, restore
+
+
+def phase_pipeline(torch, st, batch, kernels, required, dev, keep_waves=False):
     """The warm-up pass (step timers and the stage profiler; it also records
     the arguments of each distinct kernel-B launch shape and one call of
     kernels E and F for each (rows, W), which are replayed against their
     plain versions right after it and dropped), the timed pass (the
     default, device-library route), then ``multi_read_align`` once more on
     the timed pass's reads and groups with ``SARLACC_HOST_LIB=1``, timed,
-    then again with the step timers.  Returns (launch counts, the aligned
-    frame, the timed pass's stage seconds, {shape: banded_pair arguments},
-    realized reads, groups, kernel E and F's rows)."""
+    then again with the step timers.  The warm-up pass also gives the merge
+    waves' peak allocated memory (:func:`record_waves`).  Returns (launch
+    counts, the aligned frame, the timed pass's stage seconds, {shape:
+    banded_pair arguments}, realized reads, groups, kernel E and F's rows,
+    the kept merge waves)."""
     from sarlacc_tpu_torch.utils import PipelineProfiler, get_profiler, set_profiler
 
     set_profiler(PipelineProfiler())
     # The recording wraps the step timers: E and F's steps hold no copy.
     totals, restore = timed_steps(torch)
     recorded, unrecord = record_calls(torch, "pipeline", "BEF")
+    wstats, waves, unwave = record_waves(torch, keep_waves)
     try:
         t0 = time.perf_counter()
         run_pipeline(torch, st, batch, ADAPTOR1_BENCH, dev)
         warm_s = time.perf_counter() - t0
     finally:
+        unwave()
         unrecord()
         restore()
+    P, rows, W = wstats["largest"]
+    Pp = 16
+    while Pp < P:
+        Pp *= 2
+    log(f"[pipeline] merge waves: {wstats['waves']} calls of merge_wave_from_library, peak "
+        f"allocated {wstats['peak'] / 2**30:.2f} GiB ({wstats['above'] / 2**30:.2f} GiB above "
+        f"what was live before the wave); the largest wave {P} merges (Pp {Pp}) x {rows} rows x "
+        f"W {W}, whose float32 cost plane alone would be {4 * Pp * rows * W / 2**30:.2f} GiB")
     pair_calls = {name: args for name, (key, args) in recorded.items() if key == "B"}
     walk_calls = {name: call for name, call in recorded.items() if call[0] in "EF"}
     del recorded
@@ -1074,7 +1137,7 @@ def phase_pipeline(torch, st, batch, kernels, required, dev):
         restore()
     log(f"[pipeline] SARLACC_HOST_LIB=1 route with synchronized step times: "
         f"{step_report(totals)}")
-    return counts, aligned, stages, pair_calls, reads, filt, wrows
+    return counts, aligned, stages, pair_calls, reads, filt, wrows, waves
 
 
 def phase_msa_library(torch, st, reads, filt, dev, n_slice=20):
@@ -1748,11 +1811,11 @@ def main(argv=None) -> int:
     import torch
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    save_pair_shapes = None
-    if argv[:1] == ["--save-pair-shapes"] and len(argv) == 2:
-        save_pair_shapes = os.path.abspath(argv[1])
+    save_shapes = None
+    if argv[:1] == ["--save-shapes"] and len(argv) == 2:
+        save_shapes = os.path.abspath(argv[1])
     elif argv:
-        print("usage: python3 chip_smoke.py [--save-pair-shapes FILE]", file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--save-shapes FILE]", file=sys.stderr)
         return 2
 
     if not torch.cuda.is_available():
@@ -1789,14 +1852,15 @@ def main(argv=None) -> int:
     by_path = {}
     by_path["golden"], grows = phase_golden(torch, st, kernels, main_path, dev)
     krows += grows  # kernels E and F at the golden run's own shapes
-    by_path["pipeline"], aligned, stages, pair_calls, reads, filt, wrows = phase_pipeline(
-        torch, st, bench, kernels, main_path, dev)
+    by_path["pipeline"], aligned, stages, pair_calls, reads, filt, wrows, waves = phase_pipeline(
+        torch, st, bench, kernels, main_path, dev, keep_waves=bool(save_shapes))
     krows += pair_rows(torch, pair_calls, dev)  # kernel B at the pipeline's own shapes
     krows += wrows  # kernels E and F at the pipeline's own shapes
-    if save_pair_shapes:
-        torch.save(pair_calls, save_pair_shapes)
-        log(f"[pipeline] kernel-B launch arguments saved to {save_pair_shapes}")
-    del pair_calls
+    if save_shapes:
+        torch.save({"B": pair_calls, "E": waves}, save_shapes)
+        log(f"[pipeline] kernel-B launch arguments and merge waves {sorted(waves)} saved to "
+            f"{save_shapes}")
+    del pair_calls, waves
     phase_msa_library(torch, st, reads, filt, dev)
     del reads, filt
     by_path["golden_demux"] = phase_golden_demux(torch, st, kernels, SEGMENTS_KERNEL, dev)
@@ -1835,7 +1899,7 @@ def main(argv=None) -> int:
         kern, repl = replaces[r["key"]]
         launches, each = path_launches(kern.symbol)
         extra = {k: r[k] for k in ("gcups", "tile", "lanes", "passes", "block_ms", "merge_route",
-                                   "chain_rows", "registers", "spill_bytes",
+                                   "entries", "chain_rows", "registers", "spill_bytes",
                                    "achieved_occupancy") if k in r}
         if "route" in r:  # kernel B's route within its CUDA source; "route" names the language
             extra["pair_route"] = r["route"]

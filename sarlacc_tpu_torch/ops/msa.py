@@ -14,17 +14,23 @@ Counterpart of ``sarlacc_tpu/ops/msa.py``:
   pair (computed by the same walk), and the consistency extension composes
   those maps with gathers and small sorts into the packed entry table.
 * :func:`merge_wave_from_library` — one wave of progressive profile merges:
-  blank banded cost planes (:func:`_merge_cost_init`), the library weights
-  added in through the position->column maps (:func:`_merge_accum_kernel`),
-  then the gapless max-weight-trace DP and its walk (:func:`_merge_dp_walk`).
+  the library entries decoded through the position->column maps
+  (:func:`_merge_entry_targets`), then on CUDA tensors kernel E on them
+  sorted by cell (:func:`_merge_entries`, :func:`_sorted_entries`), which
+  builds each live row's costs on chip and runs the gapless
+  max-weight-trace DP and its walk; on CPU tensors blank banded cost
+  planes (:func:`_merge_cost_init`), the weights added in
+  (:func:`_merge_accum_kernel`), then the DP and walk
+  (:func:`_merge_dp_walk`).
 
-The pair walk with its identities and the merge DP with its walk are
-hand-written kernels on CUDA tensors (F and E, :mod:`.cuda_walk`); on CPU
-tensors they run their plain versions, :func:`_pair_walk_kernel` +
-:func:`_pair_ident_kernel` and :func:`_profile_merge_kernel` +
-:func:`_merge_walk_kernel`, which are Python loops over the DP rows, as
-the JAX package's scans are.  The accumulation, the cost planes and the
-library steps are plain PyTorch on the device.
+The pair walk with its identities and the merge wave are hand-written
+kernels on CUDA tensors (F and E, :mod:`.cuda_walk`); on CPU tensors they
+run their plain versions, :func:`_pair_walk_kernel` +
+:func:`_pair_ident_kernel` and the cost planes +
+:func:`_profile_merge_kernel` + :func:`_merge_walk_kernel`, which are
+Python loops over the DP rows, as the JAX package's scans are (:func:`_merge_entries_plain` is E's plain
+version on E's own inputs).  The entry decode and sort and the library
+steps are plain PyTorch on the device.
 
 Under an active mesh (:mod:`..parallel.context`) each kernel-B launch's
 pairs split over the shards: kernel B, the walk and the identities run on
@@ -426,12 +432,11 @@ def _merge_walk_kernel(dirs, lens_a, lens_b, lo):
 
 
 def _merge_dp_walk(cost, la, lb, lo, kmax):
-    """jmat int32 [rows, P] of one merge wave's cost planes: kernel E
-    (:func:`.cuda_walk.merge_dp_walk`) on CUDA tensors,
-    :func:`_profile_merge_kernel` then :func:`_merge_walk_kernel` on CPU
-    ones.  ``la``, ``lb``, ``lo``, ``kmax`` int32 [P]."""
-    if cost.is_cuda:
-        return cuda_walk.merge_dp_walk(cost, la, lb, lo, kmax)
+    """jmat int32 [rows, P] of one merge wave's finished cost planes:
+    :func:`_profile_merge_kernel` then :func:`_merge_walk_kernel`, the plain
+    DP and walk (kernel E builds its costs from the library entries
+    instead, :func:`merge_wave_from_library`).  ``la``, ``lb``, ``lo``,
+    ``kmax`` int32 [P]."""
     return _merge_walk_kernel(_profile_merge_kernel(cost, la, lb, lo, kmax), la, lb, lo)
 
 
@@ -473,18 +478,20 @@ def _ordered_add_(flat: torch.Tensor, target: torch.Tensor, w: torch.Tensor) -> 
         flat[idx] = flat[idx] + w[sel]
 
 
-def _merge_accum_kernel(lib_tab, w_inv, cost, seg, p2ca, p2cb, e0: int, e1: int):
-    """Add library entries [e0, e1) of this wave into its cost planes.
+def _merge_entry_targets(lib_tab, w_inv, seg, p2ca, p2cb, e0: int, e1: int, rows: int, width: int):
+    """Library entries [e0, e1) of a wave as cells of its [P, rows, width]
+    cost planes: (flat cell int64, weight float32, kept bool), one each.
 
     ``seg`` holds per-segment int64 tensors: ``bound`` (first entry of each
     segment in the wave's entry order), ``start`` (its first library row),
     ``m`` (its merge), ``aoff``/``boff`` (its members' offsets into the flat
     position->column maps), ``swap``, ``lo`` and ``kmax`` (its merge's band).
     Entry ``e`` of segment s reads library row ``start[s] + e - bound[s]``
-    and lands at ``cost[m, ci - 1, cj - ci - lo]``.
+    and lands at ``cost[m, ci - 1, cj - ci - lo]``, flat cell
+    ``(m * rows + ci - 1) * width + k`` (int64: a wave can span 2^31
+    cells); an entry outside the band or the rows is not kept.
     """
-    P, rows, width = cost.shape
-    dev = cost.device
+    dev = lib_tab.device
     e = torch.arange(e0, e1, dtype=torch.int64, device=dev)
     s = torch.searchsorted(seg["bound"], e, right=True) - 1
     t = seg["start"][s] + (e - seg["bound"][s])
@@ -502,7 +509,14 @@ def _merge_accum_kernel(lib_tab, w_inv, cost, seg, p2ca, p2cb, e0: int, e1: int)
         (ci >= 1) & (cj >= 1) & (k >= 0) & (k <= seg["kmax"][s])
         & (k < width) & (ci <= rows)
     )
-    target = (m * rows + (ci - 1)) * width + k
+    return (m * rows + (ci - 1)) * width + k, w_e, ok
+
+
+def _merge_accum_kernel(lib_tab, w_inv, cost, seg, p2ca, p2cb, e0: int, e1: int):
+    """Add library entries [e0, e1) of this wave into its cost planes
+    (:func:`_merge_entry_targets`), each cell's entries in entry order."""
+    P, rows, width = cost.shape
+    target, w_e, ok = _merge_entry_targets(lib_tab, w_inv, seg, p2ca, p2cb, e0, e1, rows, width)
     _ordered_add_(cost.view(-1), target[ok], w_e[ok])
 
 
@@ -510,32 +524,68 @@ def _merge_accum_kernel(lib_tab, w_inv, cost, seg, p2ca, p2cb, e0: int, e1: int)
 MERGE_ENTRY_CHUNK = 1 << 21
 
 
-def merge_wave_from_library(lib_dev, merges_desc, rows_b, W_b):
-    """Run one shape-class wave of profile merges against the device library.
+def _sorted_entries(key, w, Pp: int, rows: int, width: int):
+    """A wave's entries by cell: ``key`` int64 [N] flat cells ``(m * rows
+    + i - 1) * width + k`` in entry order (``Pp * rows * width`` for an
+    entry that is not kept), ``w`` float32 [N].  One stable sort, so each
+    cell's entries keep entry order and the dropped ones go last.  Returns
+    kernel E's inputs: (cols int32 [N], each entry's band cell k; the
+    weights float32 [N] in that order; row pointers int32 [Pp * rows + 1],
+    row r's entries at ``rowptr[r]`` up to ``rowptr[r + 1]``).  No step
+    waits on the host: the row pointers are a ``searchsorted`` of the row
+    boundaries (a ``bincount`` would read its size back)."""
+    key, perm = torch.sort(key, stable=True)
+    bounds = torch.arange(Pp * rows + 1, dtype=torch.int64, device=key.device) * width
+    rowptr = torch.searchsorted(key, bounds, out_int32=True)
+    return (key % width).to(torch.int32), w[perm], rowptr
 
-    ``lib_dev`` = (int32 [T, 3] device table of (pa, pb, quantized w),
-    float32 dequantization factor).  ``merges_desc`` is a list of dicts with
-    keys ``la, lb, lo, kmax, segments, p2ca, p2cb`` where ``segments`` lists
-    (start, length, aoff, boff, swap) tuples into the library and the
-    merge-local column maps.  Returns the device jmat int32 [rows_b, Pp]
-    (column m is merge m).
-    """
-    P = len(merges_desc)
-    if P == 0:
-        return None
+
+def _merge_entries(lib_tab, w_inv, seg, p2ca, p2cb, total: int, Pp: int, rows: int, width: int):
+    """Kernel E's inputs for a wave's ``total`` library entries, decoded
+    :data:`MERGE_ENTRY_CHUNK` at a time (:func:`_merge_entry_targets`) and
+    sorted by cell (:func:`_sorted_entries`); entries not kept stay in the
+    arrays past the last row, so no shape depends on the data."""
+    dev = lib_tab.device
+    dropped = Pp * rows * width
+    keys, ws = [], []
+    for c0 in range(0, total, MERGE_ENTRY_CHUNK):
+        target, w_e, ok = _merge_entry_targets(
+            lib_tab, w_inv, seg, p2ca, p2cb, c0, min(c0 + MERGE_ENTRY_CHUNK, total), rows, width)
+        keys.append(torch.where(ok, target, dropped))
+        ws.append(w_e)
+    key = torch.cat(keys) if keys else torch.zeros(0, dtype=torch.int64, device=dev)
+    w = torch.cat(ws) if ws else torch.zeros(0, dtype=torch.float32, device=dev)
+    return _sorted_entries(key, w, Pp, rows, width)
+
+
+def _merge_entries_plain(cols, w, rowptr, la, lb, lo, kmax, rows: int, width: int):
+    """Kernel E's plain version on its own inputs (:func:`_sorted_entries`):
+    :func:`_merge_cost_init`, the kept entries added in order
+    (:func:`_ordered_add_`), then :func:`_merge_dp_walk`."""
+    cost = _merge_cost_init(la, kmax, rows, width)
+    n = int(rowptr[-1])
+    idx = torch.arange(n, dtype=torch.int64, device=cols.device)
+    row = torch.searchsorted(rowptr.to(torch.int64), idx, right=True) - 1
+    _ordered_add_(cost.view(-1), row * width + cols[:n].to(torch.int64), w[:n])
+    return _merge_dp_walk(cost, la, lb, lo, kmax)
+
+
+def _wave_tables(lib_dev, merges_desc):
+    """The device tables of one merge wave (``merges_desc`` non-empty):
+    (Pp, the bands (la, lb, lo, kmax) int32 [Pp] with the merges past
+    ``len(merges_desc)`` padded empty, the per-segment tensors ``seg`` of
+    :func:`_merge_entry_targets`, the flat position->column maps, the
+    wave's library entry count, the float32 dequantization factor)."""
     lib_tab, w_inv = lib_dev
     dev = lib_tab.device
-    Pp = _bkt(P, 16)
-    la = np.zeros(Pp, np.int64)
-    lb = np.zeros(Pp, np.int64)
-    lo = np.zeros(Pp, np.int64)
-    kmax = np.zeros(Pp, np.int64)
+    Pp = _bkt(len(merges_desc), 16)
+    bands = np.zeros((4, Pp), np.int64)  # la, lb, lo, kmax
     cols = {k: [] for k in ("bound", "start", "m", "aoff", "boff", "swap", "lo", "kmax")}
     p2ca_parts, p2cb_parts = [], []
     aoff_global = boff_global = 0
     at = 0
     for m, d in enumerate(merges_desc):
-        la[m], lb[m], lo[m], kmax[m] = d["la"], d["lb"], d["lo"], d["kmax"]
+        bands[:, m] = d["la"], d["lb"], d["lo"], d["kmax"]
         for (start, length, aoff, boff, swap) in d["segments"]:
             for key, v in (
                 ("bound", at), ("start", start), ("m", m),
@@ -548,7 +598,6 @@ def merge_wave_from_library(lib_dev, merges_desc, rows_b, W_b):
         p2cb_parts.append(d["p2cb"])
         aoff_global += d["p2ca"].size
         boff_global += d["p2cb"].size
-    total = at
 
     def _t(a, dtype=torch.int64):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -557,16 +606,37 @@ def merge_wave_from_library(lib_dev, merges_desc, rows_b, W_b):
     # A trailing 0 ("unmapped") catches any out-of-range lookup.
     p2ca = _t(np.concatenate(p2ca_parts + [np.zeros(1, np.int32)]), torch.int32)
     p2cb = _t(np.concatenate(p2cb_parts + [np.zeros(1, np.int32)]), torch.int32)
-    la_d, lb_d, lo_d, km_d = (_t(x, torch.int32) for x in (la, lb, lo, kmax))
-
-    cost = _merge_cost_init(la_d, km_d, rows_b, W_b)
     w_inv_t = torch.tensor(np.float32(w_inv), dtype=torch.float32, device=dev)
+    return Pp, tuple(_t(x, torch.int32) for x in bands), seg, p2ca, p2cb, at, w_inv_t
+
+
+def merge_wave_from_library(lib_dev, merges_desc, rows_b, W_b):
+    """Run one shape-class wave of profile merges against the device library.
+
+    ``lib_dev`` = (int32 [T, 3] device table of (pa, pb, quantized w),
+    float32 dequantization factor).  ``merges_desc`` is a list of dicts with
+    keys ``la, lb, lo, kmax, segments, p2ca, p2cb`` where ``segments`` lists
+    (start, length, aoff, boff, swap) tuples into the library and the
+    merge-local column maps.  Returns the device jmat int32 [rows_b, Pp]
+    (column m is merge m): on a CUDA library from kernel E, with no cost
+    plane and no host sync; on a CPU one from the plain cost planes, DP
+    and walk.
+    """
+    if not merges_desc:
+        return None
+    lib_tab = lib_dev[0]
+    Pp, bands, seg, p2ca, p2cb, total, w_inv = _wave_tables(lib_dev, merges_desc)
+    if lib_tab.is_cuda:  # kernel E builds each live row's costs on chip
+        entries = _merge_entries(lib_tab, w_inv, seg, p2ca, p2cb, total, Pp, rows_b, W_b)
+        return cuda_walk.merge_dp_walk(*entries, *bands, rows_b, W_b)
+    la, _, _, kmax = bands
+    cost = _merge_cost_init(la, kmax, rows_b, W_b)
     for c0 in range(0, total, MERGE_ENTRY_CHUNK):
         _merge_accum_kernel(
-            lib_tab, w_inv_t, cost, seg, p2ca, p2cb,
+            lib_tab, w_inv, cost, seg, p2ca, p2cb,
             c0, min(c0 + MERGE_ENTRY_CHUNK, total),
         )
-    return _merge_dp_walk(cost, la_d, lb_d, lo_d, km_d)
+    return _merge_dp_walk(cost, *bands)
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,12 @@
-"""Kernels A and B of several checkouts of the port, timed in turns on one card.
+"""Kernels A, B, E and F of several checkouts of the port, timed in turns on one card.
 
-    python -m sarlacc_tpu_torch.tools.kernel_turns [--pair-shapes FILE] ROOT [ROOT ...]
+    python -m sarlacc_tpu_torch.tools.kernel_turns [--shapes FILE] [--kernels ABEF] ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a ``sarlacc_tpu_torch`` package (this
 checkout is ``.``; another is, say, a ``git archive`` of the parent
 commit).  The roots run in the order given, each in a process of its own
-that imports that root's package, builds its kernels and times them with
-CUDA events (5 calls after a warm-up) on the same inputs, all made from
-seeds:
+that imports that root's package, builds its kernels and times them on the
+same inputs, all made from seeds or read from FILE:
 
 * kernel A at adaptor_align's stacked ends of the bench batch
   (``bench.py``'s mock reads, seed 7: 19 926 250-bp ends) against adaptor1
@@ -15,14 +14,24 @@ seeds:
   reads against 500 bp of read 0, global, R = 500); and at R = 150 global
   over the stacked ends;
 * kernel B at one bucket of 4096 pipeline-shaped pairs x 1024 rows x W 256
-  and at each launch shape in ``--pair-shapes`` (``chip_smoke.py
-  --save-pair-shapes`` writes the arguments of every distinct (P, rows, W)
-  the pipeline's warm-up pass sent to ``banded_pair``).
+  and at each launch shape in FILE's ``"B"`` (``chip_smoke.py
+  --save-shapes FILE`` writes the arguments of every distinct (P, rows, W)
+  the pipeline's warm-up pass sent to ``banded_pair``);
+* kernel F (``pair_walk``) on the directions the root's kernel B gives for
+  each of those buckets (kernel B is bit-identical across the roots);
+* kernel E's whole wave path, ``ops/msa.py::merge_wave_from_library`` on
+  each merge wave in FILE's ``"E"`` (every wave of the pipeline's warm-up
+  pass, with the library entries it reads): the host tables, the cost
+  build and the kernel, whatever the root does for them, timed by the host
+  clock around each call and a synchronise.
 
-Each root's outputs are checked against its own plain versions once a
-shape (bit for bit); the runs' outputs must also agree with each other.
-Giving roots as parent, change, change, parent measures the two versions
-within one call.  It needs the card.
+A, B and F are timed with CUDA events (5 calls after a warm-up).  Each
+root's outputs are checked against its own plain versions once a shape
+(bit for bit; E against the CPU route of ``merge_wave_from_library`` on
+waves up to 2^27 band cells); the runs' outputs must also agree with each
+other.  ``--kernels`` picks the kernels timed (kernel B still runs for F's
+directions).  Giving roots as parent, change, change, parent measures the
+versions within one call.  It needs the card.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ ADAPTOR2 = "TGCATCGATCGCAT"
 LONG = ("ACGTRYKMSWBDHVN" * 10)[:150]
 
 
-def _inputs(torch, st, dev, pair_shapes):
+def _inputs(torch, st, dev, shapes, kernels):
     """name -> (kernel, arguments), the same for every root."""
     import tempfile
 
@@ -58,13 +67,15 @@ def _inputs(torch, st, dev, pair_shapes):
         batch = st.read_fastq(fp)
     finally:
         os.remove(fp)
-    stacked = SeqBatch.concat(list(batch.front_and_back(250)))
     cases = {}
+    stacked = SeqBatch.concat(list(batch.front_and_back(250)))
     for name, ref, reads, local in (
         ("A:adaptor1", ADAPTOR1, stacked, True), ("A:adaptor2", ADAPTOR2, stacked, True),
         ("A:quality_align", batch.seq_strings()[0][50:550], batch.take(np.arange(1, 301)), False),
         ("A:R150", LONG, stacked, False),
     ):
+        if "A" not in kernels:
+            break
         ad = prepare_adaptor(ref, device=dev)
         codes, qidx, _ = prepare_reads(reads, ad.tables, device=dev)
         l1, n_pad = plane_dims(*codes.shape)
@@ -91,14 +102,20 @@ def _inputs(torch, st, dev, pair_shapes):
     def t(a, dtype=None):
         return torch.as_tensor(np.asarray(a, dtype), device=dev)
 
-    cases[f"B:P{ia.size}xR{rows}xW{W}"] = ("B", (
+    buckets = {f"P{ia.size}xR{rows}xW{W}": (
         t(ca), t(cb), t(la, np.int32), t(lb, np.int32), t(lo, np.int32),
         t(hi - lo, np.int32), 0.0, -1.0, 5.0, 1.0, rows, W,
-    ))
-    if pair_shapes:
-        for name, args in torch.load(pair_shapes).items():
-            cases["B:" + name.split(":", 1)[-1]] = ("B", tuple(
-                a.to(dev) if torch.is_tensor(a) else a for a in args))
+    )}
+    saved = torch.load(shapes, weights_only=False) if shapes else {}
+    for name, args in saved.get("B", {}).items():
+        buckets[name.split(":", 1)[-1]] = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    for name, args in buckets.items():
+        for which in "BF":
+            if which in kernels:
+                cases[f"{which}:{name}"] = (which, args)
+    if "E" in kernels:
+        for name, wave in saved.get("E", {}).items():
+            cases[f"{name}:wave"] = ("E", wave)
     return cases
 
 
@@ -110,40 +127,74 @@ def _checksum(torch, t, chunk: int = 1 << 26) -> float:
                for k in range(0, flat.numel(), chunk))
 
 
-def run_root(root: str, pair_shapes=None, reps: int = 5) -> dict:
-    """In this process: import ``root``'s package, time its kernels A and B
-    at every case.  Returns {"root", "device", "ms": {case: ms}, "digest":
-    {case: output checksum}}."""
+def run_root(root: str, shapes=None, kernels="ABEF", reps: int = 5) -> dict:
+    """In this process: import ``root``'s package, time its kernels at every
+    case.  Returns {"root", "device", "ms": {case: ms}, "digest": {case:
+    output checksums}}."""
     sys.path.insert(0, os.path.abspath(root))
+    import time
+
     import torch
 
     import sarlacc_tpu_torch as st
+    from sarlacc_tpu_torch.ops import msa as ops_msa
     from sarlacc_tpu_torch.ops.align import dp_align
     from sarlacc_tpu_torch.ops.cuda_align import dir_kernel
     from sarlacc_tpu_torch.ops.cuda_msa import banded_pair_plain, pair_kernel
+    from sarlacc_tpu_torch.ops.cuda_walk import pair_walk
 
     if not st.__file__.startswith(os.path.abspath(root) + os.sep):
         raise RuntimeError(f"imported {st.__file__}, not the package under {root}")
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_turns times the kernels on the card: no CUDA device")
     dev = torch.device("cuda")
-    kernel = {"A": dir_kernel, "B": pair_kernel}
-    plain = {"A": dp_align, "B": banded_pair_plain}
+
+    def walk_plain(dirs, la, lb, lo, ca, cb):
+        jm = ops_msa._pair_walk_kernel(dirs, la, lb, lo)
+        return jm, ops_msa._pair_ident_kernel(jm, ca, cb)
+
+    def wave_plain(lib, descs, rows, W):
+        return (ops_msa.merge_wave_from_library(lib, descs, rows, W),)
+
     out = {"root": root, "device": torch.cuda.get_device_name(0), "ms": {}, "digest": {}}
-    for name, (which, args) in _inputs(torch, st, dev, pair_shapes).items():
-        got = kernel[which](*args)
-        want = plain[which](*args)
-        torch.cuda.synchronize()
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"{root}: kernel {which} at {name} differs from its plain version")
+    for name, (which, args) in _inputs(torch, st, dev, shapes, kernels).items():
+        if which == "F":  # kernel F on this bucket's directions
+            _, dirs = pair_kernel(*args)
+            args = (dirs, args[2], args[3], args[4], args[0], args[1])
+            fn, plain = (lambda a=args: pair_walk(*a)), (lambda a=args: walk_plain(*a))
+        elif which == "E":  # the whole wave path on this wave
+            (tab, w_inv), descs, rows, W = args
+            lib = (tab.to(dev), w_inv)
+            fn = lambda lib=lib, d=descs, r=rows, w=W: (ops_msa.merge_wave_from_library(lib, d, r, w),)
+            plain = None
+            if len(descs) * rows * W <= 2**27:
+                plain = lambda t=tab, i=w_inv, d=descs, r=rows, w=W: wave_plain((t, i), d, r, w)
+        else:
+            kernel = {"A": dir_kernel, "B": pair_kernel}[which]
+            fn = lambda k=kernel, a=args: k(*a)
+            plain = lambda a=args, p={"A": dp_align, "B": banded_pair_plain}[which]: p(*a)
+        got = fn()
+        if plain is not None:
+            want = plain()
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w_.to(g.device)) for g, w_ in zip(got, want)):
+                raise AssertionError(f"{root}: kernel {which} at {name} differs from its plain version")
+            del want
         out["digest"][name] = [_checksum(torch, g) for g in got]
-        del got, want
-        kernel[which](*args)
+        del got
+        fn()
         torch.cuda.synchronize()
+        if which == "E":
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+            out["ms"][name] = (time.perf_counter() - t0) * 1e3 / reps
+            continue
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
-            kernel[which](*args)
+            fn()
         end.record()
         torch.cuda.synchronize()
         out["ms"][name] = start.elapsed_time(end) / reps
@@ -153,18 +204,23 @@ def run_root(root: str, pair_shapes=None, reps: int = 5) -> dict:
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["--worker"]:
-        _, root, shapes = argv
-        print(json.dumps(run_root(root, shapes or None)), flush=True)
+        _, root, shapes, kernels = argv
+        print(json.dumps(run_root(root, shapes or None, kernels)), flush=True)
         return 0
-    shapes = ""
-    if argv[:1] == ["--pair-shapes"]:
-        shapes, argv = os.path.abspath(argv[1]), argv[2:]
+    shapes, kernels = "", "ABEF"
+    while argv[:1] in (["--shapes"], ["--kernels"]):
+        if argv[0] == "--shapes":
+            shapes = os.path.abspath(argv[1])
+        else:
+            kernels = argv[1]
+        argv = argv[2:]
     if not argv:
         raise SystemExit(__doc__)
     runs = []
     for k, root in enumerate(argv):
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker", os.path.abspath(root), shapes],
+            [sys.executable, os.path.abspath(__file__), "--worker", os.path.abspath(root), shapes,
+             kernels],
             cwd=os.path.abspath(root), capture_output=True, text=True, timeout=1800,
         )
         if proc.returncode != 0:

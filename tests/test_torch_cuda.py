@@ -701,22 +701,52 @@ def _merge_inputs(rng, Pp, rows, W, bw=100):
     return cost, *(x.astype(np.int32) for x in (la, lb, lo, kmax))
 
 
+def _plane_entries(cost, la, kmax, seed):
+    """Kernel E's inputs for a cost plane (on its device): one entry a live
+    in-band cell of its value, about a third of the cells as two entries
+    whose in-order float32 sum is the value (a multiple of 100 / 3 split on
+    a multiple of it), entries the decode drops, sorted by cell and stable
+    as ``ops/msa.py::_merge_entries`` leaves them, and the row pointers."""
+    Pp, rows, W = cost.shape
+    dev = cost.device
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    live = ((torch.arange(1, rows + 1, device=dev)[None, :, None] <= la.to(torch.int64)[:, None, None])
+            & (torch.arange(W, device=dev)[None, None, :] <= kmax.to(torch.int64)[:, None, None]))
+    cells = torch.nonzero(live.reshape(-1))[:, 0]
+    vals = cost.reshape(-1)[cells]
+    part = torch.floor(vals * torch.rand(cells.numel(), generator=g).to(dev) / np.float32(100 / 3))
+    part = part * np.float32(100 / 3)
+    two = (torch.rand(cells.numel(), generator=g) < 0.3).to(dev) & (part + (vals - part) == vals)
+    part = torch.where(two, part, vals)
+    rest = vals[two] - part[two]
+    keys = torch.cat([cells, cells[two], torch.full((5,), Pp * rows * W, device=dev)])
+    w = torch.cat([part, rest, torch.ones(5, device=dev)])
+    order = torch.randperm(keys.numel(), generator=g).to(dev)
+    return port_msa._sorted_entries(keys[order], w[order], Pp, rows, W)
+
+
 def _merge_plain(args):
     dirs = port_msa._profile_merge_kernel(*args)
     return dirs, port_msa._merge_walk_kernel(dirs, *args[1:4])
 
 
-def _hold_merge(args):
-    """Kernel E against its plain version: jmat equal, and every choice byte
-    of every live row."""
+def _hold_merge(args, seed=0):
+    """Kernel E on the plane's entries against its plain versions: jmat
+    equal to ``_merge_entries_plain`` on the same entries and to the plain
+    DP + walk on the plane, and every choice of every live row equal to the
+    plain DP's."""
+    cost, la, lb, lo, kmax = args
+    Pp, rows, W = cost.shape
+    entries = _plane_entries(cost, la, kmax, seed)
     before = cuda_walk.MERGE_KERNEL.launches
-    jm, choices = cuda_walk._launch_merge(*args)
+    jm, words = cuda_walk._launch_merge(*entries, la, lb, lo, kmax, rows, W)
     assert cuda_walk.MERGE_KERNEL.launches == before + 1
-    dirs, want = _merge_plain(args)
+    want = port_msa._merge_entries_plain(*entries, la, lb, lo, kmax, rows, W)
+    dirs, want_plane = _merge_plain(args)
     torch.cuda.synchronize()
-    assert torch.equal(jm, want)
-    la = args[1].cpu().tolist()
-    for p, n in enumerate(la):
+    assert torch.equal(jm, want) and torch.equal(jm, want_plane)
+    choices = cuda_walk.unpack_choices(words, W)
+    for p, n in enumerate(la.clamp(max=rows).cpu().tolist()):
         assert torch.equal(choices[:n, p], dirs[:n, p]), p
     return jm
 
@@ -735,10 +765,10 @@ def test_merge_kernel_matches_plain(cuda_device, rows, W, Pp):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,W", [(256, 2048), (64, 8192)])
+@pytest.mark.parametrize("rows,W", [(256, 2048), (64, 8192), (32, 16384)])
 def test_merge_kernel_block_route_wide_bands(cuda_device, rows, W):
-    """The block route at wider bands (8 and 32 chunks a row), against the
-    plain version."""
+    """The block route at wider bands (8 and 32 cells a thread) and the
+    wide route above it (64 chunks a row), against the plain version."""
     rng = np.random.default_rng(rows + W + 1)
     args = [torch.as_tensor(a, device=cuda_device) for a in _merge_inputs(rng, 40, rows, W)]
     _hold_merge(args)
@@ -748,7 +778,7 @@ def test_merge_kernel_block_route_wide_bands(cuda_device, rows, W):
 def test_merge_kernel_past_kernel_b_widths(cuda_device):
     """A wave of short profiles (19-32 columns) merged with long ones (60 000
     to 120 000 columns, as a group of a few unrelated ~32 kb reads gives):
-    W = 131 072 over 32 rows, past kernel B's widest band, on the block
+    W = 131 072 over 32 rows, past kernel B's widest band, on the wide
     route, against the plain version."""
     rng = np.random.default_rng(131072)
     Pp, rows, W, bw = 16, 32, 131072, 100
@@ -756,7 +786,7 @@ def test_merge_kernel_past_kernel_b_widths(cuda_device):
     lb = rng.integers(60_000, 120_000, Pp)
     lo = np.minimum(0, lb - la) - bw
     kmax = np.maximum(0, lb - la) + bw - lo
-    assert int(kmax.max()) < W and cuda_walk.merge_route(W) == "block"
+    assert int(kmax.max()) < W and cuda_walk.merge_route(W) == "wide"
     la[-4:] = lb[-4:] = lo[-4:] = kmax[-4:] = 0
     live = (np.arange(1, rows + 1)[None, :, None] <= la[:, None, None]) & (
         np.arange(W)[None, None, :] <= kmax[:, None, None])
@@ -780,6 +810,76 @@ def test_merge_kernel_on_adversarial_waves(cuda_device, W):
     lo[1], kmax[1] = lb[1] - la[1] + 4, W - 1
     la[2] = 5
     _hold_merge([torch.as_tensor(a, device=cuda_device) for a in (cost, la, lb, lo, kmax)])
+
+
+def _library_wave(rng, P, rows, W, n_entries):
+    """A merge wave as ``multi_read_align`` hands it to
+    ``merge_wave_from_library``: a library table of (pa, pb, quantised
+    weight) rows, one segment a merge (``swap`` on every third) over its
+    members' position->column maps, ``la`` below ``rows`` on some merges,
+    entries that land outside the band or on no column (dropped), and many
+    entries on one cell (columns drawn near the diagonal)."""
+    descs, tab, at = [], [], 0
+    for m in range(P):
+        la = int(rng.integers(rows // 3, rows + 1))
+        lb = int(np.clip(la + rng.integers(-30, 31), 1, None))
+        bw = min(60, (W - abs(lb - la) - 2) // 2)
+        lo = min(0, lb - la) - bw
+        kmax = max(0, lb - la) + bw - lo
+        n = int(rng.integers(n_entries // 2, n_entries))
+        pa = rng.integers(0, la + 1, n)
+        pb = np.clip(pa + (lb - la) * pa // max(la, 1) + rng.integers(-bw - 4, bw + 5, n), 0, lb)
+        swap = m % 3 == 0
+        if swap:
+            pa, pb = pb, pa
+        tab.append(np.stack([pa, pb, rng.integers(1, 65536, n)], axis=1))
+        descs.append({"la": la, "lb": lb, "lo": lo, "kmax": kmax,
+                      "segments": [(at, n, 0, 0, int(swap))],
+                      "p2ca": np.arange(la + 1, dtype=np.int32), "p2cb": np.arange(lb + 1, dtype=np.int32)})
+        at += n
+    return np.concatenate(tab).astype(np.int32), descs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,rows,W", [(300, 512, 256), (40, 1024, 512), (24, 512, 1024)])
+def test_merge_wave_on_the_card_equals_the_cpu(cuda_device, monkeypatch, P, rows, W):
+    """``merge_wave_from_library`` on a CUDA library runs kernel E on the
+    sorted entries (never ``_merge_cost_init``, ``_ordered_add_`` or the
+    plain DP) and equals the same wave on the CPU (the plain cost planes,
+    DP and walk) bit for bit."""
+    rng = np.random.default_rng(P + rows + W)
+    tab, descs = _library_wave(rng, P, rows, W, 6000)
+    w_inv = np.float32(1 / 4096)
+    want = port_msa.merge_wave_from_library((torch.as_tensor(tab), w_inv), descs, rows, W)
+    for name in ("_merge_cost_init", "_ordered_add_", "_merge_accum_kernel", "_merge_dp_walk"):
+        def guard(*a, _name=name):
+            raise AssertionError(f"{_name} reached on the card")
+        monkeypatch.setattr(port_msa, name, guard)
+    before = cuda_walk.MERGE_KERNEL.launches
+    got = port_msa.merge_wave_from_library((torch.as_tensor(tab, device=cuda_device), w_inv), descs, rows, W)
+    assert cuda_walk.MERGE_KERNEL.launches == before + 1
+    assert torch.equal(got.cpu(), want) and bool(want.any())
+
+
+@pytest.mark.cuda
+def test_merge_wave_allocates_no_cost_plane(cuda_device):
+    """At the pipeline's largest wave shape (4 096 merges x 1 024 rows x W
+    512: a float32 cost plane would be 8.6 GB) the wave's peak allocation
+    stays far below one plane: the entries, their sort and the row
+    pointers, E's 2-bit choice scratch (0.54 GB) and jmat."""
+    rng = np.random.default_rng(4096)
+    P, rows, W = 4096, 1024, 512
+    tab, descs = _library_wave(rng, P, rows, W, 400)
+    lib = (torch.as_tensor(tab, device=cuda_device), np.float32(1 / 4096))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    jm = port_msa.merge_wave_from_library(lib, descs, rows, W)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    plane = P * rows * W * 4
+    assert peak < plane // 8, (peak, plane)
+    assert jm.shape == (rows, P) and bool(jm.any())
 
 
 def _walk_plain(dirs, la, lb, lo, ca, cb):
@@ -869,11 +969,12 @@ def test_walk_kernel_on_shards_equals_solo(cuda_device):
 @pytest.mark.cuda
 def test_plain_walks_never_see_a_card_tensor(cuda_device, monkeypatch):
     """``multi_read_align`` on the card (both library routes) launches
-    kernels E and F, and the plain walks, merge DP and identity, made to
-    raise on a CUDA tensor, are never reached."""
+    kernels E and F, and the plain walks, merge DP and identity, the blank
+    cost planes and the ordered accumulation, made to raise on a CUDA
+    tensor, are never reached."""
     from sarlacc_tpu_torch.api.msa import multi_read_align
     for name in ("_pair_walk_kernel", "_pair_ident_kernel", "_profile_merge_kernel",
-                 "_merge_walk_kernel"):
+                 "_merge_walk_kernel", "_merge_cost_init", "_ordered_add_", "_merge_accum_kernel"):
         real = getattr(port_msa, name)
 
         def guard(first, *rest, _real=real, _name=name):
@@ -906,10 +1007,15 @@ def test_plain_walks_never_see_a_card_tensor(cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 def test_walk_kernel_resources(cuda_device):
-    """Kernels F and E as compiled fit the SM and spill nothing."""
-    res = cuda_walk.walk_kernel_resources((32, 256, 512, 1024, 131072))
+    """Kernels F and E as compiled fit the SM and spill nothing; E's warp
+    route at W 512 takes at most 64 registers a thread, and F keeps at least
+    half the SM's warps resident."""
+    res = cuda_walk.walk_kernel_resources((32, 256, 512, 1024, 8192, 131072))
+    print({name: (r["registers"], r["spill_bytes"], r["blocks_per_sm"]) for name, r in res.items()})
     assert sorted(res) == sorted(["F", "E:warp@32", "E:warp@256", "E:warp@512", "E:block@1024",
-                                  "E:block@131072"])
+                                  "E:block@8192", "E:wide@131072"])
     for name, r in res.items():
         assert 0 < r["registers"] <= 255 and r["blocks_per_sm"] >= 1, name
         assert r["spill_bytes"] == 0, (name, r)
+    assert res["E:warp@512"]["registers"] <= 64  # 32 warps an SM: a 4 096-merge wave at once
+    assert res["F"]["occupancy"] >= 0.5

@@ -10,7 +10,7 @@ on its own line:
 
 1. environment: torch / CUDA / nvcc versions, card name and power limit;
 2. build: the hand-written CUDA kernels (one nvcc per source, all started
-   together: the five of the main paths and the tools' two) and the native
+   together: the eight of the paths and the tools' two) and the native
    host library, from this checkout's sources;
 3. kernels: kernel A (direction DP) at adaptor_align's stacked ends (R =
    51 and 14), at quality_align's launch (R = 500, global) and at a
@@ -33,7 +33,12 @@ on its own line:
    per-block timer stamps); after phases 9 and 10, every kernel once more
    at each launch shape the mesh run and rank 0 of the distributed run
    launched (recorded as they ran; kernels B, E and F one shape a (rows,
-   band width)), against its plain version;
+   band width)), against its plain version; kernels G (the backtrack
+   walks), H (the device library's consistency extension) and I (the
+   Levenshtein DP) at every shape the golden, pipeline, msa_library,
+   calibration, mesh and umi phases launched them, recorded as they ran
+   and replayed against their plain versions (bit-equal), with G's
+   fetching steps, H's entries and I's DP cells;
 4. golden: the seed-locked mock pipeline of tests/test_golden_pipeline.py
    through the port's five entry points on the card, compared key by key
    with tests/golden/pipeline_mock.json; one call of kernels E and F for
@@ -168,8 +173,10 @@ PEAK_F32 = 67e12
 #: the vertical gap, mv, B and its running max, the closed horizontal gap,
 #: the masks, S and the choice); C and D 10 (``csrc/score_kernel.cu``'s
 #: ordinary cell: 6 adds, 4 maxes); the ablation kernels 17, the column-outer
-#: body (``tools/op_rates.py::COLUMN_BODY_CENSUS``: 10 adds, 4 maxes, 3 selects).
-OPS_PER_CELL = {"A": 26, "B": 21, "C": 10, "D": 10, "ablation": 17, "E": 6}
+#: body (``tools/op_rates.py::COLUMN_BODY_CENSUS``: 10 adds, 4 maxes, 3 selects);
+#: I 6 integer operations (``csrc/lev2_kernel.cu``'s cell: two adds, two
+#: minimums, the substitution cost from two bits), held to the same rate.
+OPS_PER_CELL = {"A": 26, "B": 21, "C": 10, "D": 10, "ablation": 17, "E": 6, "I": 6}
 
 
 def nbytes(*tensors) -> int:
@@ -424,7 +431,14 @@ WRAPPERS = {
     "D": ("sarlacc_tpu_torch.ops.cuda_align", "segments_kernel"),
     "E": ("sarlacc_tpu_torch.ops.cuda_walk", "merge_dp_walk"),
     "F": ("sarlacc_tpu_torch.ops.cuda_walk", "pair_walk"),
+    "G": ("sarlacc_tpu_torch.ops.cuda_backtrack", "qmap_walk"),
+    "S": ("sarlacc_tpu_torch.ops.cuda_backtrack", "string_walk"),  # kernel G's string walk
+    "H": ("sarlacc_tpu_torch.ops.cuda_extend", "extend_chunk"),
+    "I": ("sarlacc_tpu_torch.ops.cuda_lev2", "lev2_cross"),
 }
+
+#: Every key of :data:`WRAPPERS`.
+ALL_KEYS = "ABCDEFGSHI"
 
 
 def call_shape(key, args, with_pairs=True) -> str:
@@ -433,6 +447,15 @@ def call_shape(key, args, with_pairs=True) -> str:
     if key == "B":
         pairs = f"P{int(args[0].shape[0])}x" if with_pairs else ""
         return f"{pairs}R{int(args[10])}xW{int(args[11])}"
+    if key in "GS":  # dirs [R, l1, n_pad], lengths
+        R, l1, n_pad = args[0].shape
+        return f"{key}:R{R}xl1{l1}" + (f"xN{n_pad}" if with_pairs else "")
+    if key == "H":  # arena, xz, zy, w, pair_ids, counts, w_scale, strc
+        CP, SL = args[1].shape
+        return f"H:" + (f"CP{CP}x" if with_pairs else "") + f"SL{SL}xS{int(args[7])}"
+    if key == "I":  # a [TI, L], la, b [TJ, L], lb
+        TI, L = args[0].shape
+        return f"I:{TI}x" + (f"{int(args[2].shape[0])}x" if with_pairs else "") + f"L{L}"
     if key in "EF":  # E: cols, w, rowptr, 4 x [Pp], rows, W; F: dirs [rows, P, W] (B's shape)
         if key == "E":
             P, rows, W = args[3].shape[0], args[7], args[8]
@@ -450,12 +473,15 @@ def call_shape(key, args, with_pairs=True) -> str:
     return f"R{int(args[0].shape[0])}xl1{l1}xN{n}:{'fitting' if local else 'global'}"
 
 
-def record_calls(torch, path, keys="ABCDEF", per_width=False):
+def record_calls(torch, path, keys=ALL_KEYS, per_width=False):
     """Wrap the wrappers of kernels ``keys`` so that the first call of each
-    distinct launch shape keeps a copy of its arguments, named
-    ``path:shape``; kernels E and F, and with ``per_width`` kernel B, keep
-    one call for each (rows, W) only.  Returns ({name: (key, arguments)},
-    undo)."""
+    distinct launch shape keeps a copy of its arguments (taken before the
+    call: kernel H adds to its counts), named ``path:shape``; kernels E and
+    F keep one call for each (rows, W) only, kernel I one for each (rows of
+    a, L), and with ``per_width`` kernels B, G and H one for each shape
+    without its pair or read count.  Kernel H's arena is kept, not copied:
+    nothing writes to it after the pair walks, and it is the largest
+    argument.  Returns ({name: (key, arguments)}, undo)."""
     import importlib
 
     calls, seen, undo = {}, set(), []
@@ -465,11 +491,12 @@ def record_calls(torch, path, keys="ABCDEF", per_width=False):
         orig = getattr(owner, attr)
 
         def recording(*args, _key=key, _orig=orig):
-            sig = (_key, call_shape(_key, args, not (per_width or _key in "EF")))
+            sig = (_key, call_shape(_key, args, not (per_width or _key in "EFI")))
             if sig not in seen:
                 seen.add(sig)
-                calls[f"{path}:{call_shape(_key, args)}"] = (
-                    _key, tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+                calls[f"{path}:{call_shape(_key, args)}"] = (_key, tuple(
+                    a.clone() if torch.is_tensor(a) and not (_key == "H" and i == 0) else a
+                    for i, a in enumerate(args)))
             return _orig(*args)
 
         setattr(owner, attr, recording)
@@ -487,7 +514,8 @@ def replay_rows(torch, calls, dev):
     against its plain version on the same arguments (directions and scores
     equal, tolerance 0), with CUDA-event times and the bound: the kernels
     at the shapes a path launched them.  Kernel B's calls go through
-    :func:`pair_rows`, kernels E and F's through :func:`walk_rows`."""
+    :func:`pair_rows`, kernels E and F's through :func:`walk_rows`, kernels
+    G, H and I's through :func:`scan_rows`."""
     from sarlacc_tpu_torch.ops.align import dp_align, dp_scores, dp_scores_segments
     from sarlacc_tpu_torch.ops.cuda_align import (
         dir_kernel, dir_kernel_resources, dir_plan, score_kernel, score_kernel_resources,
@@ -495,7 +523,7 @@ def replay_rows(torch, calls, dev):
     )
 
     res = {**dir_kernel_resources(), **score_kernel_resources()}
-    rows_out, pairs, walks = [], {}, {}
+    rows_out, pairs, walks, scans = [], {}, {}, {}
     for name, (key, args) in calls.items():
         args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
         if key == "B":
@@ -503,6 +531,9 @@ def replay_rows(torch, calls, dev):
             continue
         if key in "EF":
             walks[name] = (key, args)
+            continue
+        if key in "GSHI":
+            scans[name] = (key, args)
             continue
         if key == "A":
             modes, mask, *_, codes_k, local = args
@@ -551,7 +582,8 @@ def replay_rows(torch, calls, dev):
                              bound_by=by, gcups=cells / ms / 1e6, registers=r["registers"],
                              spill_bytes=r["spill_bytes"], **extra))
     return (rows_out + (pair_rows(torch, pairs, dev) if pairs else [])
-            + (walk_rows(torch, walks, dev) if walks else []))
+            + (walk_rows(torch, walks, dev) if walks else [])
+            + (scan_rows(torch, scans, dev) if scans else []))
 
 
 def pair_rows(torch, cases, dev):
@@ -668,6 +700,116 @@ def walk_rows(torch, cases, dev):
         out.append(dict(key=key, name=name, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                         bound_by=by, chain_rows=chain, registers=r["registers"],
                         spill_bytes=r["spill_bytes"], **extra))
+    return out
+
+
+def scan_rows(torch, cases, dev):
+    """Kernels G, H and I at each recorded ``name -> (key, arguments)`` call
+    against their plain versions (run once a shape, after one untimed run
+    a kernel at its first shape; tolerance 0: G's maps
+    or emissions, H's entries and counts, I's distances equal), with
+    CUDA-event times and the bound.  Bytes: G the 2-byte direction cell of
+    each fetching step (counted by the kernel; each is a distinct entry of
+    the plane) plus the lengths and outputs; H each
+    distinct arena entry its gathers read once (the chunk's distinct first-
+    hop rows to ``strc``, the distinct second-hop (row, position) cells where
+    the first hop found a position), the slot tables, 12 bytes a kept entry
+    and each touched int64 count read and written once;
+    I its inputs and output once.  Operations: I six integer operations a
+    DP cell (the cells to each pair's lengths) over the float32 rate."""
+    from sarlacc_tpu_torch.ops import backtrack, cuda_backtrack, cuda_extend, cuda_lev2
+    from sarlacc_tpu_torch.ops.levenshtein import _lev2_scan
+    from sarlacc_tpu_torch.ops.msa import _extend_chunk_plain
+
+    res = {**cuda_backtrack.backtrack_kernel_resources(), **cuda_extend.extend_kernel_resources(),
+           **cuda_lev2.lev2_kernel_resources()}
+    out, warmed = [], set()
+    for name, (key, args) in cases.items():
+        if key not in warmed:  # a kernel's first plain run also loads PyTorch's kernels
+            warmed.add(key)
+            if key == "H":
+                _extend_chunk_plain(*args[:5], args[5].clone(), *args[6:])
+            elif key == "I":
+                _lev2_scan(args[0][:, None, :], args[1][:, None], args[2][None], args[3][None])
+            else:
+                (backtrack._qmap_walk_plain if key == "G" else backtrack._string_walk_plain)(*args)
+        if key in "GS":
+            dirs, lengths = args
+            kern = cuda_backtrack.qmap_walk if key == "G" else cuda_backtrack.string_walk
+            plain = backtrack._qmap_walk_plain if key == "G" else backtrack._string_walk_plain
+            fetches = torch.zeros(1, dtype=torch.int64, device=dev)
+            got = kern(dirs, lengths, fetches=fetches)
+            want, plain_ms = timed_once(torch, lambda: plain(dirs, lengths))
+            what = "maps" if key == "G" else "emissions"
+            rname = "G:qmap" if key == "G" else "G:string"
+            n_fetch = int(fetches)
+            R, l1, n_pad = dirs.shape
+            detail = f"R={R} l1={l1} n_pad={n_pad}, {n_fetch} fetching steps"
+            extra = dict(fetches=n_fetch)
+            if key == "S":
+                steps = int(got[2].to(torch.int64).sum())
+                detail += f", {steps} steps"
+                extra["steps"] = steps
+            n_bytes = 2 * n_fetch + nbytes(lengths, *got)
+            ops = 0
+        elif key == "H":
+            arena, xz, zy, w, pid, counts, w_scale, strc = args
+            c_k, c_p = counts.clone(), counts.clone()
+            rows_k = cuda_extend.extend_chunk(arena, xz, zy, w, pid, c_k, w_scale, strc)
+            rows_p, plain_ms = timed_once(torch, lambda: _extend_chunk_plain(
+                arena, xz, zy, w, pid, c_p, w_scale, strc))
+            got, want = (rows_k, c_k), (rows_p, c_p)
+            what, rname = "entries and counts", "H:write"
+            CP, SL = xz.shape
+            k = arena[:, :strc][xz].to(torch.int64)
+            first_rows = int(torch.unique(xz).numel())
+            hops = int(torch.unique((zy[:, :, None].to(torch.int64) * arena.shape[1] + k)[k > 0])
+                       .numel())
+            del k
+            kept = int(rows_k.shape[0])
+            n_bytes = (2 * (first_rows * strc + hops) + nbytes(xz, zy, w, pid) + 12 * kept
+                       + 16 * int(torch.unique(pid).numel()))
+            ops = 0
+            detail = (f"CP={CP} SL={SL} strc={strc}, {first_rows} distinct first-hop rows, "
+                      f"{hops} distinct second-hop cells, {kept} entries")
+            extra = dict(entries=kept, first_rows=first_rows, second_cells=hops)
+        else:
+            a, la, b, lb = args
+            got = (cuda_lev2.lev2_cross(a, la, b, lb),)
+            want, plain_ms = timed_once(torch, lambda: (_lev2_scan(
+                a[:, None, :], la[:, None], b[None], lb[None]),))
+            what = "distances"
+            L = int(a.shape[1])
+            rname = f"I:{cuda_lev2.lev2_route(L)}"
+            live = (lb > 0) & (lb <= L)
+            cells = int(la.to(torch.int64).clamp(0, L).sum()) * int(
+                torch.where(live, lb, 0).to(torch.int64).sum())
+            n_bytes = nbytes(a, la, b, lb, got[0])
+            ops = OPS_PER_CELL["I"] * cells
+            detail = f"TI={a.shape[0]} TJ={b.shape[0]} L={L} ({rname[2:]} route), {cells} cells"
+            extra = dict(cells=cells, lev2_route=rname[2:])
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"kernel {key} ({name}): {what} differ from the plain version")
+        err = max((float((x.double() - y.double()).abs().max()) for x, y in zip(got, want)
+                   if x.numel()), default=0.0)
+        if key in "GS":
+            ms = event_ms(lambda: kern(dirs, lengths), 5, dev)
+        elif key == "H":
+            ms = event_ms(lambda: cuda_extend.extend_chunk(arena, xz, zy, w, pid, c_k, w_scale,
+                                                           strc), 5, dev)
+        else:
+            ms = event_ms(lambda: cuda_lev2.lev2_cross(a, la, b, lb), 5, dev)
+        bms, by = bound(n_bytes, ops)
+        r = res[rname]
+        log(f"[kernels] {key} {name}: {detail}: {what} equal, kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}, {100 * bms / ms:.2f}%); "
+            f"{r['registers']} registers, {r['spill_bytes']} B spilled, {r['blocks_per_sm']} "
+            f"blocks of {r['threads']} an SM")
+        out.append(dict(key=key, name=name, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                        bound_by=by, registers=r["registers"], spill_bytes=r["spill_bytes"],
+                        **extra))
+        del got, want
     return out
 
 
@@ -847,14 +989,15 @@ def read_counts(kernels) -> dict:
 
 def phase_golden(torch, st, kernels, required, dev):
     """The golden pipeline on the card against its snapshot; kernels E and F
-    are recorded one call a (rows, W) as it runs and replayed against their
-    plain versions after it.  Returns (launch counts, E and F's rows)."""
+    are recorded one call a (rows, W), G, H and I one a launch shape, as it
+    runs, and replayed against their plain versions after it.  Returns
+    (launch counts, their rows)."""
     batch = mock_batch(
         st, ADAPTOR1_GOLDEN, nmolecules=10, nreads_range=(4, 9),
         seqlen_range=(350, 600), seed=20240817,
     )
     reset(kernels)
-    recorded, unrecord = record_calls(torch, "golden", "EF")
+    recorded, unrecord = record_calls(torch, "golden", "EFGHI")
     try:
         aligned, umis, groups, msa, cons, _, _ = run_pipeline(
             torch, st, batch, ADAPTOR1_GOLDEN, dev)
@@ -886,9 +1029,9 @@ def phase_golden(torch, st, kernels, required, dev):
     if min(counts[k.symbol] for k in required) == 0:
         raise AssertionError(f"a kernel never launched in the golden run: {counts}")
     log(f"[golden] {len(want)} keys equal tests/golden/pipeline_mock.json "
-        f"({len(batch)} reads, {len(cons)} consensus reads); launches {counts}; kernel E "
-        f"and F shapes {sorted(recorded)}")
-    return counts, walk_rows(torch, recorded, dev)
+        f"({len(batch)} reads, {len(cons)} consensus reads); launches {counts}; kernel E, "
+        f"F, G, H and I shapes {sorted(recorded)}")
+    return counts, replay_rows(torch, recorded, dev)
 
 
 #: Steps timed in the warm-up pass and in the host-route pass, (module,
@@ -1042,22 +1185,23 @@ def record_waves(torch, keep=False):
 
 def phase_pipeline(torch, st, batch, kernels, required, dev, keep_waves=False):
     """The warm-up pass (step timers and the stage profiler; it also records
-    the arguments of each distinct kernel-B launch shape and one call of
-    kernels E and F for each (rows, W), which are replayed against their
-    plain versions right after it and dropped), the timed pass (the
+    the arguments of each distinct kernel-B launch shape, one call of
+    kernels E and F for each (rows, W) and of kernels G and H for each
+    launch shape, which but B's are replayed against their plain versions
+    right after it and dropped), the timed pass (the
     default, device-library route), then ``multi_read_align`` once more on
     the timed pass's reads and groups with ``SARLACC_HOST_LIB=1``, timed,
     then again with the step timers.  The warm-up pass also gives the merge
     waves' peak allocated memory (:func:`record_waves`).  Returns (launch
     counts, the aligned frame, the timed pass's stage seconds, {shape:
-    banded_pair arguments}, realized reads, groups, kernel E and F's rows,
+    banded_pair arguments}, realized reads, groups, kernel E-H's rows,
     the kept merge waves)."""
     from sarlacc_tpu_torch.utils import PipelineProfiler, get_profiler, set_profiler
 
     set_profiler(PipelineProfiler())
     # The recording wraps the step timers: E and F's steps hold no copy.
     totals, restore = timed_steps(torch)
-    recorded, unrecord = record_calls(torch, "pipeline", "BEF")
+    recorded, unrecord = record_calls(torch, "pipeline", "BEFGHI")
     wstats, waves, unwave = record_waves(torch, keep_waves)
     try:
         t0 = time.perf_counter()
@@ -1076,15 +1220,16 @@ def phase_pipeline(torch, st, batch, kernels, required, dev, keep_waves=False):
         f"what was live before the wave); the largest wave {P} merges (Pp {Pp}) x {rows} rows x "
         f"W {W}, whose float32 cost plane alone would be {4 * Pp * rows * W / 2**30:.2f} GiB")
     pair_calls = {name: args for name, (key, args) in recorded.items() if key == "B"}
-    walk_calls = {name: call for name, call in recorded.items() if call[0] in "EF"}
+    walk_calls = {name: call for name, call in recorded.items() if call[0] != "B"}
     del recorded
     log(f"[pipeline] warm-up pass {warm_s:.3f} s; synchronized step times: "
-        f"{step_report(totals)}; kernel-B shapes {sorted(pair_calls)}; kernel E and F "
-        f"shapes {sorted(walk_calls)}")
+        f"{step_report(totals)}; kernel-B shapes {sorted(pair_calls)}; kernel E, F, G, H "
+        f"and I shapes {sorted(walk_calls)}")
     log("[pipeline] stage profiler after the warm-up pass:\n" + get_profiler().report())
-    # E and F's copies (kernel F's are kernel B's direction tensors) go
-    # before the timed pass, so they are not in its peak memory.
-    wrows = walk_rows(torch, walk_calls, dev)
+    # E-I's copies (kernel F's are kernel B's direction tensors, H's keep the
+    # library's arena) go before the timed pass, so they are not in its
+    # peak memory.
+    wrows = replay_rows(torch, walk_calls, dev)
     del walk_calls
 
     reset(kernels)
@@ -1140,16 +1285,22 @@ def phase_pipeline(torch, st, batch, kernels, required, dev, keep_waves=False):
     return counts, aligned, stages, pair_calls, reads, filt, wrows, waves
 
 
-def phase_msa_library(torch, st, reads, filt, dev, n_slice=20):
+def phase_msa_library(torch, st, reads, filt, kernels, dev, n_slice=20):
     """Both libraries on the card for the first segment of the pipeline's
     groups (the same pairs, (a, b) entries and identities within 1e-6,
     weights within one quantum: the JAX package's own device-vs-host
     tolerances), then the device route on the card against ``device="cpu"``
     on the first ``n_slice`` groups of at most 10 reads, with the segment
-    budget pinned on both (table, identities and strings bit-equal)."""
+    budget pinned on both (table, identities and strings bit-equal).
+    Kernel H's calls on the card are recorded as they run and replayed
+    against its plain version after the phase.  Returns (launch counts,
+    H's rows)."""
     import numpy as np
 
     import sarlacc_tpu_torch.api.msa as msa
+
+    reset(kernels)
+    recorded, unrecord = record_calls(torch, "msa_library", "H")
 
     cpu = torch.device("cpu")
     by_group = [np.asarray(g, np.int64) for g in filt]
@@ -1219,9 +1370,15 @@ def phase_msa_library(torch, st, reads, filt, dev, n_slice=20):
         msa._segment_lib_budget = budget
     if card["alignments"] != on_cpu["alignments"]:
         raise AssertionError("msa_library: strings differ between the card and the CPU")
+    unrecord()
+    counts = read_counts(kernels)
+    if counts["sarlacc_extend_kernel"] == 0:
+        raise AssertionError(f"kernel H never launched in the msa_library phase: {counts}")
     log(f"[msa_library] {len(sl)} groups ({len(seg_c)} pairs, {tab_c.shape[0]} entries): "
         f"device route on the card equal to device='cpu' (table, identities, strings; "
-        f"segment budget pinned at 1 GiB); comparison {time.perf_counter() - t0:.1f} s")
+        f"segment budget pinned at 1 GiB); comparison {time.perf_counter() - t0:.1f} s; "
+        f"launches {counts}; kernel-H shapes {sorted(recorded)}")
+    return counts, replay_rows(torch, recorded, dev)
 
 
 def phase_golden_demux(torch, st, kernels, kernel_d, dev):
@@ -1327,8 +1484,10 @@ def phase_demux(torch, st, demux, kernels, dev):
 
 def phase_calibration(torch, st, batch, aligned, kernels, dev):
     """The calibration entry points on the card, timed, each compared with
-    the same call on the CPU (plain versions); tolerance 0.  Returns (launch
-    counts, the timed pass's outputs by entry point, its seconds)."""
+    the same call on the CPU (plain versions); tolerance 0.  Kernel G's
+    walks are recorded in the warm-up pass and replayed against their plain
+    versions at the end.  Returns (launch counts, the timed pass's outputs
+    by entry point, its seconds, G's rows)."""
     import numpy as np
 
     def timed(name, fn, out):
@@ -1364,10 +1523,12 @@ def phase_calibration(torch, st, batch, aligned, kernels, dev):
         return tuned, thr, filt, ext, qal
 
     totals, restore = timed_steps(torch, CAL_STEPS, qualify=True)
+    recorded, unrecord = record_calls(torch, "calibration", "GS")
     warm_secs: dict[str, float] = {}
     try:
         card_pass(warm_secs)
     finally:
+        unrecord()
         restore()
     log(f"[calibration] warm-up pass {sum(warm_secs.values()):.3f} s; synchronized "
         f"step times: {step_report(totals)}")
@@ -1385,7 +1546,8 @@ def phase_calibration(torch, st, batch, aligned, kernels, dev):
     if len(filt) == 0 or len(ext["adaptor1"]["Sub2"]) != len(filt):
         raise AssertionError("filter_reads / extract_subseq kept no reads")
     if min(counts["sarlacc_score_kernel"], counts["sarlacc_segments_kernel"],
-           counts["sarlacc_dir_kernel"]) == 0:
+           counts["sarlacc_dir_kernel"], counts["sarlacc_qmap_kernel"],
+           counts["sarlacc_string_kernel"]) == 0:
         raise AssertionError(f"a kernel never launched in the calibration run: {counts}")
 
     # The same calls on the CPU.  tune_alignment runs on a 400-read slice
@@ -1428,7 +1590,7 @@ def phase_calibration(torch, st, batch, aligned, kernels, dev):
         f"reads, picked {t_cpu['parameters']}); CPU comparison {cpu_s:.1f} s")
     outputs = {"tune_alignment": tuned, "get_adaptor_thresholds": thr, "filter_reads": filt,
                "extract_subseq": ext}
-    return counts, outputs, secs
+    return counts, outputs, secs, replay_rows(torch, recorded, dev)
 
 
 def umi_batch(n, umi_len, n_clusters, seed=5):
@@ -1455,18 +1617,24 @@ UMI_WORKLOADS = (
 )
 
 
-def phase_umi(torch, st, dev):
-    """umi_group on the card: timed, and the row-block workloads' slices
-    compared with device='cpu' (tolerance 0: the same groups)."""
+def phase_umi(torch, st, kernels, lev2, dev):
+    """umi_group on the card: timed (the row-block scan and kernel I's
+    dispatcher ``_lev2_block`` with synchronised step timers; kernel I's
+    first call a row-block shape recorded), and the row-block workloads'
+    slices compared with device='cpu' (tolerance 0: the same groups).
+    Returns (the launch counts of the timed calls, kernel I's rows)."""
     import numpy as np
 
-    rows = []
+    rows, counts, recorded = [], {}, {}
     for name, n, umi_len, k, thr, scans in UMI_WORKLOADS:
         batch = umi_batch(n, umi_len, k)
         st.umi_group(batch.take(np.arange(n // 4)), threshold1=thr, device=dev)  # warm-up
         totals, restore = timed_steps(
-            torch, (("sarlacc_tpu_torch.ops.levenshtein", "_neighbor_pairs_rowblock"),)
+            torch, (("sarlacc_tpu_torch.ops.levenshtein", "_neighbor_pairs_rowblock"),
+                    ("sarlacc_tpu_torch.ops.levenshtein", "_lev2_block"))
         )
+        calls, unrecord = record_calls(torch, f"umi:{name}", "I")
+        reset(kernels)
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1474,8 +1642,15 @@ def phase_umi(torch, st, dev):
             torch.cuda.synchronize()
             elapsed = time.perf_counter() - t0
         finally:
+            unrecord()
             restore()
+        for kern, c in read_counts(kernels).items():
+            counts[kern] = counts.get(kern, 0) + c
+        recorded.update(calls)
+        if scans and lev2.launches == 0:
+            raise AssertionError(f"umi {name}: kernel I never launched in the row-block scan")
         scan_s, scan_calls = totals["_neighbor_pairs_rowblock"]
+        block_s, block_calls = totals["_lev2_block"]
         members = np.sort(np.concatenate(groups))
         if not np.array_equal(members, np.arange(n)):
             raise AssertionError(f"umi {name}: the groups do not partition the {n} UMIs")
@@ -1484,7 +1659,8 @@ def phase_umi(torch, st, dev):
                                  f"{'some' if scans else 'none'}")
         line = (f"[umi] {name}: {n} UMIs of {umi_len} bp, threshold {thr}: {elapsed:.3f} s = "
                 f"{n / elapsed:.1f} UMIs/s, {len(groups)} groups; row-block scan "
-                f"{scan_s:.3f} s synchronised over {scan_calls} calls")
+                f"{scan_s:.3f} s synchronised over {scan_calls} calls, of it _lev2_block "
+                f"(kernel I) {block_s:.3f} s over {block_calls} calls")
         if scans:
             sl = batch.take(np.arange(2500))
             t0 = time.perf_counter()
@@ -1496,7 +1672,7 @@ def phase_umi(torch, st, dev):
                      f"(comparison {time.perf_counter() - t0:.1f} s)")
         log(line)
         rows.append((name, n, elapsed, len(groups), scan_s))
-    return rows
+    return counts, replay_rows(torch, recorded, dev)
 
 
 #: The scripts' pallas_call lines each new kernel replaces.
@@ -1691,7 +1867,8 @@ def phase_mesh(torch, st, batch, demux, kernels, dev, smi, earlier, earlier_s):
     for key in ("histogram1", "histogram2"):
         if int(thr[key].sum()) != len(batch):
             raise AssertionError(f"mesh: {key} sums to {int(thr[key].sum())}, not {len(batch)}")
-    if min(counts[k.symbol] for k in kernels) == 0:
+    # Every kernel but kernel G's string walk (quality_align takes no mesh).
+    if min(counts[k.symbol] for k in kernels if k.symbol != "sarlacc_string_kernel") == 0:
         raise AssertionError(f"a kernel never launched in the mesh run: {counts}")
     log(f"[mesh] {len(batch)} reads on make_mesh(4) (4 shards of cuda:0), every output equal "
         f"to the solo call's; histograms sum to {len(batch)}; card {smi}; seconds mesh / solo: "
@@ -1830,13 +2007,17 @@ def main(argv=None) -> int:
               f"script ({exc})", file=sys.stderr)
         return 2
     from sarlacc_tpu_torch.ops.cuda_align import DIR_KERNEL, SCORE_KERNEL, SEGMENTS_KERNEL
+    from sarlacc_tpu_torch.ops.cuda_backtrack import QMAP_KERNEL, STRING_KERNEL
+    from sarlacc_tpu_torch.ops.cuda_extend import EXTEND_KERNEL
+    from sarlacc_tpu_torch.ops.cuda_lev2 import LEV2_KERNEL
     from sarlacc_tpu_torch.ops.cuda_msa import PAIR_KERNEL
     from sarlacc_tpu_torch.ops.cuda_walk import MERGE_KERNEL, WALK_KERNEL
 
     from sarlacc_tpu_torch.tools import op_mix, op_rates, score_ablation
 
-    kernels = (DIR_KERNEL, PAIR_KERNEL, SCORE_KERNEL, SEGMENTS_KERNEL, MERGE_KERNEL, WALK_KERNEL)
-    main_path = (DIR_KERNEL, PAIR_KERNEL, MERGE_KERNEL, WALK_KERNEL)
+    kernels = (DIR_KERNEL, PAIR_KERNEL, SCORE_KERNEL, SEGMENTS_KERNEL, MERGE_KERNEL, WALK_KERNEL,
+               QMAP_KERNEL, STRING_KERNEL, EXTEND_KERNEL, LEV2_KERNEL)
+    main_path = (DIR_KERNEL, PAIR_KERNEL, MERGE_KERNEL, WALK_KERNEL, QMAP_KERNEL, EXTEND_KERNEL)
     smi = phase_environment(torch)
     phase_build(kernels + tuple(score_ablation.KERNELS.values()) + tuple(op_mix.KERNELS.values())
                 + tuple(op_rates.KERNELS.values()))
@@ -1848,7 +2029,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     krows = phase_kernels(torch, st, bench, dev)
     krows += phase_score_kernels(torch, st, demux, bench, dev)
-    # Each path runs with every count at 0 and reports all six kernels.
+    # Each path runs with every count at 0 and reports every kernel.
     by_path = {}
     by_path["golden"], grows = phase_golden(torch, st, kernels, main_path, dev)
     krows += grows  # kernels E and F at the golden run's own shapes
@@ -1861,12 +2042,14 @@ def main(argv=None) -> int:
         log(f"[pipeline] kernel-B launch arguments and merge waves {sorted(waves)} saved to "
             f"{save_shapes}")
     del pair_calls, waves
-    phase_msa_library(torch, st, reads, filt, dev)
+    by_path["msa_library"], mrows = phase_msa_library(torch, st, reads, filt, kernels, dev)
+    krows += mrows  # kernel H at the msa_library phase's own shapes
     del reads, filt
     by_path["golden_demux"] = phase_golden_demux(torch, st, kernels, SEGMENTS_KERNEL, dev)
     by_path["demux"] = phase_demux(torch, st, demux, kernels, dev)
-    by_path["calibration"], solo, solo_s = phase_calibration(
+    by_path["calibration"], solo, solo_s, crows = phase_calibration(
         torch, st, bench, aligned, kernels, dev)
+    krows += crows  # kernel G at calibration's own shapes
     # The mesh and distributed paths' kernels at their own launch shapes.
     by_path["mesh"], calls = phase_mesh(
         torch, st, bench, demux, kernels, dev, smi,
@@ -1875,9 +2058,8 @@ def main(argv=None) -> int:
     by_path["distributed"], calls = phase_distributed(torch, st, bench, SCORE_KERNEL)
     krows += replay_rows(torch, calls, dev)
     del bench, aligned, demux, solo, calls
-    reset(kernels)
-    phase_umi(torch, st, dev)
-    by_path["umi"] = read_counts(kernels)
+    by_path["umi"], urows = phase_umi(torch, st, kernels, LEV2_KERNEL, dev)
+    krows += urows  # kernel I at the row-block scans' own shapes
     tool_checks, tool_counts, _ = phase_tools(torch, dev)
     by_path["tools"] = {k.symbol: tool_counts.get(k.symbol, 0) for k in kernels}
 
@@ -1893,13 +2075,18 @@ def main(argv=None) -> int:
         "D": (SEGMENTS_KERNEL, "sarlacc_tpu/ops/pallas_align.py:564"),
         "E": (MERGE_KERNEL, "sarlacc_tpu/ops/msa.py:938"),
         "F": (WALK_KERNEL, "sarlacc_tpu/ops/msa.py:158"),
+        "G": (QMAP_KERNEL, "sarlacc_tpu/ops/backtrack.py:77"),
+        "S": (STRING_KERNEL, "sarlacc_tpu/ops/backtrack.py:167"),
+        "H": (EXTEND_KERNEL, "sarlacc_tpu/ops/msa.py:1320"),
+        "I": (LEV2_KERNEL, "sarlacc_tpu/ops/levenshtein.py:139"),
     }
     report = []
     for r in krows:
         kern, repl = replaces[r["key"]]
         launches, each = path_launches(kern.symbol)
         extra = {k: r[k] for k in ("gcups", "tile", "lanes", "passes", "block_ms", "merge_route",
-                                   "entries", "chain_rows", "registers", "spill_bytes",
+                                   "entries", "chain_rows", "fetches", "steps", "cells",
+                                   "lev2_route", "registers", "spill_bytes",
                                    "achieved_occupancy") if k in r}
         if "route" in r:  # kernel B's route within its CUDA source; "route" names the language
             extra["pair_route"] = r["route"]

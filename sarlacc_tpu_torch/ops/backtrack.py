@@ -3,8 +3,10 @@
 Counterpart of ``sarlacc_tpu/ops/backtrack.py`` (``qmap_walk_device``,
 ``string_walk_device``, ``query_windows`` and ``assemble_strings``).
 :func:`qmap_walk` and :func:`string_walk` walk every read at once, on the
-device of the direction planes, one backtrack step per iteration: plain
-PyTorch, so each step is a handful of small launches.  Only the [N, R+1]
+device of the direction planes: on CUDA tensors kernel G
+(:mod:`.cuda_backtrack`, one thread a read, one launch), on CPU tensors
+the plain versions :func:`_qmap_walk_plain` and :func:`_string_walk_plain`,
+one backtrack step per iteration for every read.  Only the [N, R+1]
 mapping arrays, or the [N, T] emission arrays, leave the card.
 """
 
@@ -13,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import cuda_backtrack
+
 __all__ = ["assemble_strings", "qmap_walk", "query_windows", "string_walk"]
 
 #: Walk steps between checks for finished reads (each check syncs the host).
@@ -20,7 +24,15 @@ _STEPS_PER_CHECK = 8
 
 
 def qmap_walk(dirs: torch.Tensor, lengths: torch.Tensor):
-    """Query maps from kernel-layout directions ``dirs`` [R, l1, n_pad].
+    """Query maps from kernel-layout directions ``dirs`` [R, l1, n_pad]:
+    kernel G on CUDA tensors, :func:`_qmap_walk_plain` on CPU ones."""
+    if dirs.is_cuda:
+        return cuda_backtrack.qmap_walk(dirs, lengths)
+    return _qmap_walk_plain(dirs, lengths)
+
+
+def _qmap_walk_plain(dirs: torch.Tensor, lengths: torch.Tensor):
+    """Kernel G's plain version, one backtrack step an iteration.
 
     Returns (is_match bool [n_pad, R+1], dp_row int32 [n_pad, R+1]), the
     ``fill_map`` mapping (reference_align.cpp:280-305): position 0 is
@@ -67,7 +79,16 @@ def qmap_walk(dirs: torch.Tensor, lengths: torch.Tensor):
 
 
 def string_walk(dirs: torch.Tensor, lengths: torch.Tensor):
-    """Gapped-alignment emissions from kernel-layout directions [R, l1, n_pad].
+    """Gapped-alignment emissions from kernel-layout directions [R, l1,
+    n_pad]: kernel G on CUDA tensors, :func:`_string_walk_plain` on CPU
+    ones."""
+    if dirs.is_cuda:
+        return cuda_backtrack.string_walk(dirs, lengths)
+    return _string_walk_plain(dirs, lengths)
+
+
+def _string_walk_plain(dirs: torch.Tensor, lengths: torch.Tensor):
+    """Kernel G's plain version, one backtrack step an iteration.
 
     The template backtrack of reference_align.cpp:353-389, replayed for
     every read at once.  Per read, position t of the two [T] arrays

@@ -5,10 +5,12 @@ Costs are doubled integers (match 0, N-vs-anything 1, mismatch/indel 2 —
 sorted_trie.cpp:13-21), so ``d2 <= 2*limit`` reproduces the reference trie's
 neighbour sets exactly.
 
-* :func:`lev2_matrix` — the dense all-pairs matrix for small groups, as a
-  plain PyTorch column DP on the device: the within-column recurrence
-  ``col[i] = min(prev[i]+2, col[i-1]+2, prev[i-1]+ms)`` unrolls to a shifted
-  prefix-min (``cummin``), so pairs and positions stay parallel.
+* :func:`lev2_matrix` — the dense all-pairs matrix for small groups.  The
+  distance DP runs on the device: kernel I (:mod:`.cuda_lev2`, one thread
+  a pair, its column in registers) on CUDA tensors; on CPU tensors its
+  plain version :func:`_lev2_scan`, a column DP whose within-column
+  recurrence ``col[i] = min(prev[i]+2, col[i-1]+2, prev[i-1]+ms)`` unrolls
+  to a shifted prefix-min, so pairs and positions stay parallel.
 * :func:`lev2_neighbor_pairs` — thresholded neighbours at scale through one
   of the JAX package's two exact engines: the native symmetric-delete
   search where its heuristics hold, else the row-block scan
@@ -21,6 +23,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import cuda_lev2
 
 __all__ = ["lev2_condensed", "lev2_matrix", "lev2_neighbor_pairs"]
 
@@ -72,9 +76,22 @@ def _lev2_block(a, la, b, lb):
     """Doubled distances between every row of ``a`` and every row of ``b``.
 
     a [TI, L], b [n, L] int32 codes (pad 5); la [TI], lb [n] int32.
-    Returns int32 [TI, n].
+    Returns int32 [TI, n]: kernel I (:func:`.cuda_lev2.lev2_cross`) on
+    CUDA tensors, :func:`_lev2_scan` on CPU ones.
     """
+    if a.is_cuda:
+        return cuda_lev2.lev2_cross(a, la, b, lb)
     return _lev2_scan(a[:, None, :], la[:, None], b[None], lb[None])
+
+
+def _lev2_pairs(codes, lengths, ia, ib):
+    """Doubled distances of the pairs (``ia[p]``, ``ib[p]``) of one code
+    table [n, L] (int64 index tensors [P]).  Returns int32 [P]: kernel I
+    (:func:`.cuda_lev2.lev2_paired`) on CUDA tensors, :func:`_lev2_scan`
+    on the gathered rows on CPU ones."""
+    if codes.is_cuda:
+        return cuda_lev2.lev2_paired(codes, lengths, ia, ib)
+    return _lev2_scan(codes[ia], lengths[ia], codes[ib], lengths[ib])
 
 
 def lev2_matrix(codes: np.ndarray, lengths: np.ndarray, device=None) -> np.ndarray:
@@ -138,7 +155,7 @@ def lev2_condensed(
         ja = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(cnt) - cnt, cnt) + ia + 1
         ia_t = torch.as_tensor(ia, device=dev)
         ja_t = torch.as_tensor(ja, device=dev)
-        d2 = _lev2_scan(c[ia_t], lens[ia_t], c[ja_t], lens[ja_t])
+        d2 = _lev2_pairs(c, lens, ia_t, ja_t)
         out[at : at + total] = d2.cpu().numpy()
         at += total
         i0 = i1

@@ -12,7 +12,9 @@ Counterpart of ``sarlacc_tpu/ops/msa.py``:
   walk's matched positions stay on the device as forward and reverse
   position maps (:func:`_arena_place_kernel`) beside a float32 identity per
   pair (computed by the same walk), and the consistency extension composes
-  those maps with gathers and small sorts into the packed entry table.
+  those maps into the packed entry table: kernel H (:mod:`.cuda_extend`)
+  on CUDA tensors, gathers and small sorts (:func:`_extend_chunk_plain`)
+  on CPU ones.
 * :func:`merge_wave_from_library` — one wave of progressive profile merges:
   the library entries decoded through the position->column maps
   (:func:`_merge_entry_targets`), then on CUDA tensors kernel E on them
@@ -29,8 +31,8 @@ run their plain versions, :func:`_pair_walk_kernel` +
 :func:`_pair_ident_kernel` and the cost planes +
 :func:`_profile_merge_kernel` + :func:`_merge_walk_kernel`, which are
 Python loops over the DP rows, as the JAX package's scans are (:func:`_merge_entries_plain` is E's plain
-version on E's own inputs).  The entry decode and sort and the library
-steps are plain PyTorch on the device.
+version on E's own inputs).  The entry decode and sort and the arena
+placement are plain PyTorch on the device.
 
 Under an active mesh (:mod:`..parallel.context`) each kernel-B launch's
 pairs split over the shards: kernel B, the walk and the identities run on
@@ -47,7 +49,7 @@ import torch
 from ..device import memory_budget, resolve_device
 from ..parallel.context import active_mesh, shard_bounds
 from ..utils.profiling import StageStats, get_profiler
-from . import cuda_walk
+from . import cuda_extend, cuda_walk
 from .cuda_msa import NEG, banded_pair
 
 __all__ = [
@@ -721,7 +723,16 @@ def _arena_place_kernel(arena, jmat, arow):
 
 
 def _extend_chunk_kernel(arena, xz_rows, zy_rows, w_slots, pair_ids, counts, w_scale, strc: int):
-    """Consistency-extend one chunk of output pairs; returns its entries.
+    """Consistency-extend one chunk of output pairs; returns its entries:
+    kernel H (:func:`.cuda_extend.extend_chunk`) on a CUDA arena,
+    :func:`_extend_chunk_plain` on a CPU one."""
+    run = cuda_extend.extend_chunk if arena.is_cuda else _extend_chunk_plain
+    return run(arena, xz_rows, zy_rows, w_slots, pair_ids, counts, w_scale, strc)
+
+
+def _extend_chunk_plain(arena, xz_rows, zy_rows, w_slots, pair_ids, counts, w_scale, strc: int):
+    """Kernel H's plain version: one chunk's entries by gathers, a sort
+    along the slots and unrolled masked adds.
 
     For output pair p and slot s (slot 0 the base x~y map through the
     identity row, each other slot one middle sequence z):

@@ -27,7 +27,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.cuda_align import fit_scores
-from ..ops.levenshtein import _lev2_scan
+from ..ops.levenshtein import _lev2_block
 from .context import shard_batch, use_mesh
 
 __all__ = ["Mesh", "make_mesh", "shard_reads", "sharded_adaptor_scores", "sharded_pipeline_step"]
@@ -239,5 +239,5 @@ def sharded_pipeline_step(
         revs.append(rev)
         hists.append(_hist(idx, bins))
         cb, lb = all_u.to(dev), all_l.to(dev)
-        blocks.append(_lev2_scan(ucodes[s][:, None, :], ulens[s][:, None], cb[None], lb[None]))
+        blocks.append(_lev2_block(ucodes[s], ulens[s], cb, lb))
     return _cat(mesh, finals), _cat(mesh, revs), _sum_over(mesh, hists), _cat(mesh, blocks)

@@ -8,8 +8,11 @@ JAX, so it also runs on a machine that has only PyTorch:
 (``--noconftest`` skips ``tests/conftest.py``, which imports JAX.)  Kernel A
 and kernel B must give directions bit-identical and scores equal to their
 plain PyTorch versions on the same card, kernels C and D scores equal
-to theirs, and kernels E and F jmat and identities equal to theirs, across
-the shapes each kernel's launch configuration branches on.
+to theirs, kernels E and F jmat and identities equal to theirs, kernel G
+its query maps and emissions, H its library entries and counts and I its
+distances, across the shapes each kernel's launch configuration branches
+on; with the plain walks, extension and Levenshtein scan made to raise on
+a CUDA tensor, the entry points that reach them still run on the card.
 """
 
 import numpy as np
@@ -1019,3 +1022,215 @@ def test_walk_kernel_resources(cuda_device):
         assert r["spill_bytes"] == 0, (name, r)
     assert res["E:warp@512"]["registers"] <= 64  # 32 warps an SM: a 4 096-merge wave at once
     assert res["F"]["occupancy"] >= 0.5
+
+
+def _walk_plane(device, ref, n, maxl, local, seed):
+    """Kernel A's directions and the reads' lengths for ``n`` random reads
+    of up to ``maxl`` bases against ``ref``."""
+    batch = _reads(np.random.default_rng(seed), n, maxl)
+    ad = prepare_adaptor(ref, device=device)
+    codes, qidx, lengths = prepare_reads(batch, ad.tables, device=device)
+    _, dirs, _ = fit_dirs(codes, qidx, lengths, ad.modes, ad.matched, ad.match_tab,
+                          ad.mismatch_tab, 5.0, 1.0, local=local)
+    return dirs, lengths
+
+
+def _hold_walks(dirs, lengths):
+    """Kernel G's two walks against the plain versions on the same card."""
+    from sarlacc_tpu_torch.ops import backtrack, cuda_backtrack
+
+    before = (cuda_backtrack.QMAP_KERNEL.launches, cuda_backtrack.STRING_KERNEL.launches)
+    got_q = cuda_backtrack.qmap_walk(dirs, lengths)
+    got_s = cuda_backtrack.string_walk(dirs, lengths)
+    assert (cuda_backtrack.QMAP_KERNEL.launches, cuda_backtrack.STRING_KERNEL.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_q = backtrack._qmap_walk_plain(dirs, lengths)
+    want_s = backtrack._string_walk_plain(dirs, lengths)
+    torch.cuda.synchronize()
+    for got, want in zip(got_q + got_s, want_q + want_s):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    return got_s[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ref,local,n,maxl", [
+    (ADAPTOR, True, 700, 250), (ADAPTOR2, True, 19926, 250), (BARCODE, False, 300, 60),
+    ("quality_align", False, 300, 700),
+])
+def test_backtrack_walks_match_plain(cuda_device, ref, local, n, maxl):
+    """Kernel G on kernel A's directions at small shapes, at adaptor_align's
+    stacked ends (19 926 reads) and at quality_align's launch (300 reads
+    up to 700 bp against 500 bp, global): query maps and emissions
+    bit-equal to the plain walks."""
+    if ref == "quality_align":
+        ref = "".join(np.random.default_rng(5).choice(list("ACGT"), 500))
+    dirs, lengths = _walk_plane(cuda_device, ref, n, maxl, local, n + maxl)
+    ncols = _hold_walks(dirs, lengths)
+    assert int(ncols.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,l1,n_pad,n", [(7, 9, 96, 70), (1, 5, 32, 32), (40, 64, 128, 0),
+                                          (300, 260, 640, 600)])
+def test_backtrack_walks_on_malformed_planes(cuda_device, R, l1, n_pad, n):
+    """Random planes strand lanes until the plain loop's step cap; lanes
+    past the lengths and reads of length 0 walk from row 0."""
+    rng = np.random.default_rng(R + l1 + n)
+    dirs = torch.as_tensor(rng.integers(-3, 4, (R, l1, n_pad)).astype(np.int16), device=cuda_device)
+    lengths = rng.integers(0, l1, n).astype(np.int32)
+    lengths[: min(n, 3)] = 0
+    ncols = _hold_walks(dirs, torch.as_tensor(lengths, device=cuda_device))
+    assert int(ncols.max()) == -(-(R + l1 + 9) // 8) * 8 or n == 0
+
+
+def _extend_chunk(rng, CP, SL, STR, n_rows, positions):
+    """A random arena and one chunk's slot tables (dead slots, a pad pair
+    last, pair 0's first four slots one run whose tree sum rounds
+    otherwise than its slot-order sum)."""
+    arena = np.where(rng.random((n_rows, STR)) < 0.25, 0,
+                     rng.integers(1, positions, (n_rows, STR))).astype(np.int16)
+    arena[0] = 0
+    arena[1] = np.arange(STR)
+    arena[2] = np.where(np.arange(STR) % 3, 7, 0)
+    xz = rng.integers(3, n_rows, (CP, SL))
+    zy = rng.integers(1, n_rows, (CP, SL))
+    ws = (rng.random((CP, SL)) * 100).astype(np.float32)
+    dead = rng.random((CP, SL)) < 0.2
+    xz[dead], ws[dead] = 0, 0.0
+    if SL >= 4:
+        xz[0], ws[0] = 0, 0.0
+        xz[0, :4], zy[0, :4] = 2, 1
+        ws[0, :4] = [2.5, 2.0 ** -23, 2.0 ** -23, 2.0 ** -23]
+    xz[-1], zy[-1], ws[-1] = 0, 0, 0.0
+    pid = rng.permutation(CP + 4)[:CP]
+    pid[-1] = CP + 4
+    return arena, xz, zy, ws, pid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("CP,SL,STR,strc,positions", [
+    (6, 6, 128, 128, 40), (40, 10, 512, 300, 200), (9, 32, 256, 256, 3),
+    (1024, 16, 1024, 1024, 700), (1, 2, 128, 0, 40),
+])
+def test_extend_kernel_matches_plain(cuda_device, CP, SL, STR, strc, positions):
+    """Kernel H against the plain extension on the same card: the entries
+    (a, b, weight) and the counts bit-equal, at small chunks, a chunk with
+    runs of 32 slots on 3 positions, and a pipeline-sized chunk (1 024
+    pairs x 16 slots x 1 024 positions)."""
+    from sarlacc_tpu_torch.ops import cuda_extend
+
+    rng = np.random.default_rng(CP + SL + strc)
+    arena, xz, zy, ws, pid = _extend_chunk(rng, CP, SL, STR, 40, positions)
+    t = [torch.as_tensor(x, device=cuda_device) for x in (arena, xz, zy, ws, pid)]
+    scale = torch.tensor(np.float32(0.61 if SL != 6 else 1.0), device=cuda_device)
+    c_k = torch.zeros(CP + 5, dtype=torch.int64, device=cuda_device)
+    c_p = torch.zeros_like(c_k)
+    before = cuda_extend.EXTEND_KERNEL.launches
+    got = port_msa._extend_chunk_kernel(*t, c_k, scale, strc)
+    assert cuda_extend.EXTEND_KERNEL.launches == before + (2 if got.shape[0] else 1)
+    want = port_msa._extend_chunk_plain(*t, c_p, scale, strc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(c_k, c_p)
+    assert int(c_k[CP + 4]) == 0
+    if SL == 6:
+        pair0 = got[: int(c_k[pid[0]])]
+        assert set(pair0[pair0[:, 1] == 7, 2].tolist()) == {2}
+
+
+def _lev_codes(rng, n, L, n_rate=0.06):
+    lengths = rng.integers(0, L + 1, n).astype(np.int32)
+    lengths[:2] = [0, L]
+    codes = rng.choice(5, (n, L), p=[(1 - n_rate) / 4] * 4 + [n_rate]).astype(np.int32)
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = 5
+    return codes, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("TI,TJ,L", [(64, 500, 10), (64, 500, 30), (64, 300, 33), (48, 200, 64),
+                                     (32, 100, 100), (8, 40, 300), (512, 3584, 30)])
+def test_lev2_kernel_matches_plain(cuda_device, TI, TJ, L):
+    """Kernel I's cross and paired forms on each route (registers up to 32
+    rows, the scratch route above) against the plain scan on the same
+    card, with N codes and reads of length 0; 512 x 3 584 x 30 is a
+    row-block launch of long_umis."""
+    from sarlacc_tpu_torch.ops import cuda_lev2, levenshtein
+
+    rng = np.random.default_rng(TI + TJ + L)
+    codes, lengths = _lev_codes(rng, TI + TJ, L)
+    c = torch.as_tensor(codes, device=cuda_device)
+    ln = torch.as_tensor(lengths, device=cuda_device)
+    before = cuda_lev2.LEV2_KERNEL.launches
+    got = levenshtein._lev2_block(c[:TI], ln[:TI], c[TI:], ln[TI:])
+    want = levenshtein._lev2_scan(c[:TI, None, :], ln[:TI, None], c[None, TI:], ln[None, TI:])
+    ia = torch.as_tensor(rng.integers(0, TI + TJ, 5000), device=cuda_device)
+    ib = torch.as_tensor(rng.integers(0, TI + TJ, 5000), device=cuda_device)
+    got_p = levenshtein._lev2_pairs(c, ln, ia, ib)
+    want_p = levenshtein._lev2_scan(c[ia], ln[ia], c[ib], ln[ib])
+    assert cuda_lev2.LEV2_KERNEL.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_p, want_p)
+
+
+@pytest.mark.cuda
+def test_plain_scans_never_see_a_card_tensor(cuda_device, monkeypatch):
+    """adaptor_align, quality_align, multi_read_align (device library) and
+    umi_group (the dense matrix and the row-block scan) on the card launch
+    kernels G, H and I, and the plain walks, extension and Levenshtein
+    scan, made to raise on a CUDA tensor, are never reached."""
+    import sarlacc_tpu_torch as st
+    from sarlacc_tpu_torch.ops import backtrack, cuda_backtrack, cuda_extend, cuda_lev2, levenshtein
+
+    for owner, name in ((backtrack, "_qmap_walk_plain"), (backtrack, "_string_walk_plain"),
+                        (port_msa, "_extend_chunk_plain"), (levenshtein, "_lev2_scan")):
+        real = getattr(owner, name)
+
+        def guard(first, *rest, _real=real, _name=name):
+            if first.is_cuda:
+                raise AssertionError(f"{_name} got a CUDA tensor")
+            return _real(first, *rest)
+
+        monkeypatch.setattr(owner, name, guard)
+    monkeypatch.delenv("SARLACC_HOST_LIB", raising=False)
+    kernels = (cuda_backtrack.QMAP_KERNEL, cuda_backtrack.STRING_KERNEL,
+               cuda_extend.EXTEND_KERNEL, cuda_lev2.LEV2_KERNEL)
+    before = [k.launches for k in kernels]
+
+    rng = np.random.default_rng(12)
+    seqs, groups = [], []
+    for n, length in ((6, 150), (3, 90), (9, 240)):
+        ref = rng.integers(0, 4, length)
+        groups.append(list(range(len(seqs), len(seqs) + n)))
+        for _ in range(n):
+            s = ref.copy()
+            mut = rng.random(length) < 0.06
+            s[mut] = rng.integers(0, 4, int(mut.sum()))
+            seqs.append("".join("ACGT"[c] for c in s[rng.random(length) >= 0.03]))
+    batch = SeqBatch.from_strings(seqs, ["I" * len(s) for s in seqs])
+    aligned = st.adaptor_align(ADAPTOR, ADAPTOR2, reads=batch, tolerance=100, device=cuda_device)
+    qal = st.quality_align(batch, seqs[0][:80], device=cuda_device)
+    msa = st.multi_read_align(batch, groups=groups, bandwidth=30, device=cuda_device)
+    small = SeqBatch.from_strings(
+        ["".join(rng.choice(list("ACGTN"), 12, p=[0.24] * 4 + [0.04])) for _ in range(60)])
+    dense = st.umi_group(small, threshold1=2, device=cuda_device)
+    umis = SeqBatch.from_strings(["".join(rng.choice(list("ACGT"), 30)) for _ in range(2100)])
+    scanned = st.umi_group(umis, threshold1=2, device=cuda_device)
+    after = [k.launches for k in kernels]
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert len(aligned) == len(seqs) and len(qal) == len(seqs)
+    assert [len(a) for a in msa["alignments"]] == [6, 3, 9]
+    assert sum(len(g) for g in dense) == 60 and sum(len(g) for g in scanned) == 2100
+
+
+@pytest.mark.cuda
+def test_walk_extend_lev2_kernel_resources(cuda_device):
+    """Kernels G, H and I as compiled fit the SM and spill nothing."""
+    from sarlacc_tpu_torch.ops import cuda_backtrack, cuda_extend, cuda_lev2
+
+    res = {**cuda_backtrack.backtrack_kernel_resources(), **cuda_extend.extend_kernel_resources(),
+           **cuda_lev2.lev2_kernel_resources()}
+    print({name: (r["registers"], r["spill_bytes"], r["blocks_per_sm"]) for name, r in res.items()})
+    assert sorted(res) == sorted(["G:qmap", "G:string", "H:count", "H:write", "H:scan",
+                                  "I:reg32", "I:scratch"])
+    for name, r in res.items():
+        assert 0 < r["registers"] <= 255 and r["blocks_per_sm"] >= 1, name
+        assert r["spill_bytes"] == 0, (name, r)

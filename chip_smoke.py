@@ -38,7 +38,10 @@ on its own line:
    Levenshtein DP) at every shape the golden, pipeline, msa_library,
    calibration, mesh and umi phases launched them, recorded as they ran
    and replayed against their plain versions (bit-equal), with G's
-   fetching steps, H's entries and I's DP cells;
+   fetching steps, H's entries (H a whole library build: every chunk's
+   counting pass, the device scan, one readback, every writing pass) and
+   I's DP cells, and I's thresholded form (the row-block scan's hits, in
+   order, and its DP cells; a forced overflow re-runs once);
 4. golden: the seed-locked mock pipeline of tests/test_golden_pipeline.py
    through the port's five entry points on the card, compared key by key
    with tests/golden/pipeline_mock.json; one call of kernels E and F for
@@ -98,10 +101,11 @@ on its own line:
    generator (random centres, 30% of reads mutated by one base, one
    pre-group, seed 5): 100 000 10-bp UMIs at threshold 2 (the native
    filter path), 20 000 30-bp UMIs at threshold 2 and 20 000 20-bp UMIs at
-   threshold 3 (both the row-block neighbour scan on the card); each warmed
-   on a quarter, then timed with the scan's synchronised step time; for the
-   two scan workloads the groups of a 2 500-UMI slice equal the same call
-   on ``device="cpu"``;
+   threshold 3 (both the row-block neighbour scan on the card, kernel I's
+   thresholded form); each warmed on a quarter, then timed with the scan's
+   synchronised step time and its host readbacks; for the two
+   scan workloads the groups of a 2 500-UMI slice equal the same call on
+   ``device="cpu"``;
 12. tools: every new kernel (the five kernel-C ablations, the four op-mix
     and five op-rate classes) against its plain version on the card, bit
     for bit (the chains at 4 iterations), ``full`` against kernel C and the
@@ -118,10 +122,11 @@ max |diff|, its launches over those runs (``launches``, and per path in
 (each input read once, each output written once; of the cost planes only
 the slots the references select, at the rows the DP computes; for kernel E
 its kept library entries, 4-byte cell and 4-byte weight each, its row
-pointers and bands and jmat; for the walks one 32-byte sector of
-directions a walked row) over 3.35 TB/s and its float operations (for E
-six a live cell and one add an entry) over 67 TFLOP/s (the H100 SXM data
-sheet),
+pointers and bands and jmat; for kernel F the direction byte of each cell
+on each pair's path) over 3.35 TB/s and its float operations (for E six a
+live cell and one add an entry; for I's thresholded form six a band cell
+it evaluated, as the kernel counts them) over 67 TFLOP/s (the H100 SXM
+data sheet),
 with ``bound_by`` naming the larger; the walks' rows also give
 ``chain_rows``, the longest chain of dependent row steps, which bounds
 them more than either.  ``library_ms`` is null: no single PyTorch call
@@ -433,12 +438,13 @@ WRAPPERS = {
     "F": ("sarlacc_tpu_torch.ops.cuda_walk", "pair_walk"),
     "G": ("sarlacc_tpu_torch.ops.cuda_backtrack", "qmap_walk"),
     "S": ("sarlacc_tpu_torch.ops.cuda_backtrack", "string_walk"),  # kernel G's string walk
-    "H": ("sarlacc_tpu_torch.ops.cuda_extend", "extend_chunk"),
+    "H": ("sarlacc_tpu_torch.ops.cuda_extend", "extend_library"),
     "I": ("sarlacc_tpu_torch.ops.cuda_lev2", "lev2_cross"),
+    "T": ("sarlacc_tpu_torch.ops.cuda_lev2", "lev2_hits"),  # kernel I's thresholded form
 }
 
 #: Every key of :data:`WRAPPERS`.
-ALL_KEYS = "ABCDEFGSHI"
+ALL_KEYS = "ABCDEFGSHIT"
 
 
 def call_shape(key, args, with_pairs=True) -> str:
@@ -450,9 +456,13 @@ def call_shape(key, args, with_pairs=True) -> str:
     if key in "GS":  # dirs [R, l1, n_pad], lengths
         R, l1, n_pad = args[0].shape
         return f"{key}:R{R}xl1{l1}" + (f"xN{n_pad}" if with_pairs else "")
-    if key == "H":  # arena, xz, zy, w, pair_ids, counts, w_scale, strc
-        CP, SL = args[1].shape
-        return f"H:" + (f"CP{CP}x" if with_pairs else "") + f"SL{SL}xS{int(args[7])}"
+    if key == "H":  # arena, jobs, first_job, fracs, order, chunks, w_scale: one library build
+        chunks = args[5]
+        return (f"H:J{int(args[4].shape[0])}xC{len(chunks)}xSL{min(c[2] for c in chunks)}-"
+                f"{max(c[2] for c in chunks)}xS{int(args[0].shape[1])}") if chunks else "H:J0"
+    if key == "T":  # codes [n, W], lens, s_len, thr, limit, tile
+        n, W = args[0].shape
+        return f"T:n{n}xW{W}xthr{int(args[3])}"
     if key == "I":  # a [TI, L], la, b [TJ, L], lb
         TI, L = args[0].shape
         return f"I:{TI}x" + (f"{int(args[2].shape[0])}x" if with_pairs else "") + f"L{L}"
@@ -492,9 +502,13 @@ def record_calls(torch, path, keys=ALL_KEYS, per_width=False):
 
         def recording(*args, _key=key, _orig=orig):
             sig = (_key, call_shape(_key, args, not (per_width or _key in "EFI")))
+            name = f"{path}:{call_shape(_key, args)}"
+            if _key == "H":  # every build: its chunks are its shapes
+                sig = (_key, len(calls))
+                name += f"#{sum(k == 'H' for k, _ in calls.values())}"
             if sig not in seen:
                 seen.add(sig)
-                calls[f"{path}:{call_shape(_key, args)}"] = (_key, tuple(
+                calls[name] = (_key, tuple(
                     a.clone() if torch.is_tensor(a) and not (_key == "H" and i == 0) else a
                     for i, a in enumerate(args)))
             return _orig(*args)
@@ -515,7 +529,7 @@ def replay_rows(torch, calls, dev):
     equal, tolerance 0), with CUDA-event times and the bound: the kernels
     at the shapes a path launched them.  Kernel B's calls go through
     :func:`pair_rows`, kernels E and F's through :func:`walk_rows`, kernels
-    G, H and I's through :func:`scan_rows`."""
+    G, H and I's (both forms) through :func:`scan_rows`."""
     from sarlacc_tpu_torch.ops.align import dp_align, dp_scores, dp_scores_segments
     from sarlacc_tpu_torch.ops.cuda_align import (
         dir_kernel, dir_kernel_resources, dir_plan, score_kernel, score_kernel_resources,
@@ -532,7 +546,7 @@ def replay_rows(torch, calls, dev):
         if key in "EF":
             walks[name] = (key, args)
             continue
-        if key in "GSHI":
+        if key in "GSHIT":
             scans[name] = (key, args)
             continue
         if key == "A":
@@ -684,15 +698,23 @@ def walk_rows(torch, cases, dev):
             at = torch.arange(1, rows + 1, device=jm.device)[:, None]
             lowest = torch.where(matched, at, rows + 1).amin(0)
             walked = (la.clamp(0, rows).to(torch.int64) - lowest + 1).clamp(min=0)
-            # One 32-byte sector of directions a walked row, both codes of
-            # each match, jmat and the identities once.
-            n_bytes = 32 * int(walked.sum()) + 2 * int(matched.sum()) + nbytes(la, lb, lo, jm, ident)
+            # The path's cells, each direction byte once: from (la, lb) to
+            # the lowest match (low_r, low_c), the rows and columns it spans
+            # less one for each diagonal step, which takes a row and a
+            # column at once.
+            low_c = jm.gather(0, (lowest - 1).clamp(0, rows - 1)[None].to(torch.int64))[0]
+            spans = walked + torch.where(walked > 0, lb.to(torch.int64) - low_c + 1, 0)
+            path = int((spans - torch.where(walked > 0, matched.sum(0), 0)).sum())
+            # The path's direction bytes, both codes of each match, jmat and
+            # the identities once.
+            n_bytes = (dirs.element_size() * path + 2 * int(matched.sum())
+                       + nbytes(la, lb, lo, jm, ident))
             bms, by = bound(n_bytes, 0)
             chain = int(walked.max()) if P else 0
             r = res["F"]
-            detail = (f"P={P} rows={rows} W={W}, {int(walked.sum())} walked rows: jmat and "
-                      f"identities equal, kernel {ms:.3f} ms")
-            extra = {}
+            detail = (f"P={P} rows={rows} W={W}, {int(walked.sum())} walked rows, {path} path "
+                      f"cells: jmat and identities equal, kernel {ms:.3f} ms")
+            extra = dict(path_cells=path)
         log(f"[kernels] {key} {name}: {detail}, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}, "
             f"{100 * bms / ms:.2f}%), chain of {chain} dependent row steps; {r['registers']} "
             f"registers, {r['spill_bytes']} B spilled, {r['blocks_per_sm']} blocks of "
@@ -703,23 +725,58 @@ def walk_rows(torch, cases, dev):
     return out
 
 
+def h_bytes(torch, args, table, off):
+    """Kernel H's compulsory bytes on one library build: each distinct
+    arena entry its gathers read once (every first-hop row to the widest
+    ``strc`` it is read at; every distinct second-hop (row, position) cell
+    where the first hop found a position), the per-job table (16 bytes a
+    job), the order and identities (4 bytes a job each), the group table,
+    12 bytes a kept entry and 8 an offset written.  The slot tables are
+    built by the plain version's ``_slot_tables`` for the count only."""
+    from sarlacc_tpu_torch.ops.msa import _slot_tables
+
+    arena, jobs, first_job, fracs, order, chunks, _ = args
+    dev = arena.device
+    STR = arena.shape[1]
+    jobs_t = torch.as_tensor(jobs, dtype=torch.int64, device=dev)
+    first_t = torch.as_tensor(first_job, dtype=torch.int64, device=dev)
+    order_t = torch.as_tensor(order, dtype=torch.int64, device=dev)
+    widest = torch.zeros(arena.shape[0], dtype=torch.int64, device=dev)
+    hops = []
+    for q0, q1, sl, strc in chunks:
+        xz, zy, _ = _slot_tables(jobs_t, first_t, fracs, order_t[q0:q1], sl)
+        widest.scatter_reduce_(0, xz.reshape(-1), torch.full_like(xz.reshape(-1), strc), "amax")
+        k = arena[:, :strc][xz].to(torch.int64)
+        hops.append(torch.unique((zy[:, :, None] * STR + k)[k > 0]))
+        del xz, zy, k
+    widest[0] = 0  # dead slots' zero row: never gathered
+    n_hops = int(torch.unique(torch.cat(hops)).numel()) if hops else 0
+    n_bytes = (2 * (int(widest.sum()) + n_hops) + 24 * int(jobs.shape[0])
+               + 4 * int(first_job.shape[0]) + 12 * int(table.shape[0]) + 8 * int(off.shape[0]))
+    return n_bytes, int((widest > 0).sum()), n_hops
+
+
 def scan_rows(torch, cases, dev):
-    """Kernels G, H and I at each recorded ``name -> (key, arguments)`` call
-    against their plain versions (run once a shape, after one untimed run
-    a kernel at its first shape; tolerance 0: G's maps
-    or emissions, H's entries and counts, I's distances equal), with
-    CUDA-event times and the bound.  Bytes: G the 2-byte direction cell of
-    each fetching step (counted by the kernel; each is a distinct entry of
-    the plane) plus the lengths and outputs; H each
-    distinct arena entry its gathers read once (the chunk's distinct first-
-    hop rows to ``strc``, the distinct second-hop (row, position) cells where
-    the first hop found a position), the slot tables, 12 bytes a kept entry
-    and each touched int64 count read and written once;
-    I its inputs and output once.  Operations: I six integer operations a
-    DP cell (the cells to each pair's lengths) over the float32 rate."""
+    """Kernels G, H and I (both forms) at each recorded ``name -> (key,
+    arguments)`` call against their plain versions (run once a shape, after
+    one untimed run a kernel at its first shape; tolerance 0: G's maps or
+    emissions, H's library entries and pair offsets, I's distances, its
+    thresholded form's hit pairs in order), with CUDA-event times and the
+    bound.  Bytes: G the 2-byte direction cell of each fetching step
+    (counted by the kernel; each is a distinct entry of the plane) plus the
+    lengths and outputs; H :func:`h_bytes` (a whole library build: every
+    chunk's counting pass, the scan and every writing pass, timed queued
+    back to back, the uploads and the readback outside the events; the
+    whole build is timed beside it); I its inputs and output once; I's
+    thresholded form the codes and lengths once and 8 bytes a hit.
+    Operations: I six integer operations a DP cell (the cells to each
+    pair's lengths) over the float32 rate; its thresholded form six a DP
+    cell it counts (``cells=``: each pair's band cells inside the matrix,
+    to its exit).  A bound above the measured time means a count is wrong
+    and fails the run."""
     from sarlacc_tpu_torch.ops import backtrack, cuda_backtrack, cuda_extend, cuda_lev2
-    from sarlacc_tpu_torch.ops.levenshtein import _lev2_scan
-    from sarlacc_tpu_torch.ops.msa import _extend_chunk_plain
+    from sarlacc_tpu_torch.ops.levenshtein import _lev2_scan, _rowblock_hits_plain
+    from sarlacc_tpu_torch.ops.msa import _extend_library_plain
 
     res = {**cuda_backtrack.backtrack_kernel_resources(), **cuda_extend.extend_kernel_resources(),
            **cuda_lev2.lev2_kernel_resources()}
@@ -728,9 +785,11 @@ def scan_rows(torch, cases, dev):
         if key not in warmed:  # a kernel's first plain run also loads PyTorch's kernels
             warmed.add(key)
             if key == "H":
-                _extend_chunk_plain(*args[:5], args[5].clone(), *args[6:])
+                _extend_library_plain(*args)
             elif key == "I":
                 _lev2_scan(args[0][:, None, :], args[1][:, None], args[2][None], args[3][None])
+            elif key == "T":
+                _rowblock_hits_plain(*args)
             else:
                 (backtrack._qmap_walk_plain if key == "G" else backtrack._string_walk_plain)(*args)
         if key in "GS":
@@ -752,28 +811,40 @@ def scan_rows(torch, cases, dev):
                 extra["steps"] = steps
             n_bytes = 2 * n_fetch + nbytes(lengths, *got)
             ops = 0
+            run = lambda: kern(dirs, lengths)  # noqa: E731
         elif key == "H":
-            arena, xz, zy, w, pid, counts, w_scale, strc = args
-            c_k, c_p = counts.clone(), counts.clone()
-            rows_k = cuda_extend.extend_chunk(arena, xz, zy, w, pid, c_k, w_scale, strc)
-            rows_p, plain_ms = timed_once(torch, lambda: _extend_chunk_plain(
-                arena, xz, zy, w, pid, c_p, w_scale, strc))
-            got, want = (rows_k, c_k), (rows_p, c_p)
-            what, rname = "entries and counts", "H:write"
-            CP, SL = xz.shape
-            k = arena[:, :strc][xz].to(torch.int64)
-            first_rows = int(torch.unique(xz).numel())
-            hops = int(torch.unique((zy[:, :, None].to(torch.int64) * arena.shape[1] + k)[k > 0])
-                       .numel())
-            del k
-            kept = int(rows_k.shape[0])
-            n_bytes = (2 * (first_rows * strc + hops) + nbytes(xz, zy, w, pid) + 12 * kept
-                       + 16 * int(torch.unique(pid).numel()))
+            table_k, off_k = cuda_extend.extend_library(*args)
+            (table_p, off_p), plain_ms = timed_once(torch, lambda: _extend_library_plain(*args))
+            got = (table_k, torch.as_tensor(off_k))
+            want = (table_p, torch.as_tensor(off_p))
+            what, rname = "entries and pair offsets", "H:write"
+            chunks = args[5]
+            n_bytes, first_rows, hops = h_bytes(torch, args, table_k, off_k)
             ops = 0
-            detail = (f"CP={CP} SL={SL} strc={strc}, {first_rows} distinct first-hop rows, "
-                      f"{hops} distinct second-hop cells, {kept} entries")
-            extra = dict(entries=kept, first_rows=first_rows, second_cells=hops)
-        else:
+            kept = int(table_k.shape[0])
+            classes = sorted({(c[2], c[3]) for c in chunks})
+            detail = (f"{int(args[4].shape[0])} pairs in {len(chunks)} chunks of {len(classes)} "
+                      f"(SL, strc) classes {classes[0]}-{classes[-1]}, {first_rows} distinct "
+                      f"first-hop rows, {hops} distinct second-hop cells, {kept} entries")
+            # The row's time is the queued passes alone (tables uploaded and
+            # offsets read back outside the events); the whole build, with its
+            # uploads, host checks and readback, is timed beside it.
+            build_ms = event_ms(lambda: cuda_extend.extend_library(*args), 5, dev)
+            build = cuda_extend.ExtendBuild(*args)
+            queued = torch.empty_like(table_k)
+
+            def run():
+                build.count()
+                build.write(off_k, queued)
+
+            run()
+            torch.cuda.synchronize()
+            if not torch.equal(queued, table_k) or not torch.equal(build.off.cpu(), got[1]):
+                raise AssertionError(f"kernel H ({name}): the queued passes differ from the build")
+            detail += f"; the whole build {build_ms:.3f} ms"
+            extra = dict(entries=kept, pairs=int(args[4].shape[0]), chunks=len(chunks),
+                         first_rows=first_rows, second_cells=hops, build_ms=build_ms)
+        elif key == "I":
             a, la, b, lb = args
             got = (cuda_lev2.lev2_cross(a, la, b, lb),)
             want, plain_ms = timed_once(torch, lambda: (_lev2_scan(
@@ -788,19 +859,47 @@ def scan_rows(torch, cases, dev):
             ops = OPS_PER_CELL["I"] * cells
             detail = f"TI={a.shape[0]} TJ={b.shape[0]} L={L} ({rname[2:]} route), {cells} cells"
             extra = dict(cells=cells, lev2_route=rname[2:])
+            run = lambda: cuda_lev2.lev2_cross(a, la, b, lb)  # noqa: E731
+        else:  # kernel I's thresholded form: one row-block scan
+            codes, lens, s_len, thr, limit, tile = args
+            n, W = codes.shape
+            cells_t = torch.zeros(1, dtype=torch.int64, device=dev)
+            before = cuda_lev2.HITS_KERNEL.launches
+            got = (cuda_lev2.lev2_hits(*args, cells=cells_t),)
+            launched = cuda_lev2.HITS_KERNEL.launches - before
+            want, plain_ms = timed_once(torch, lambda: (_rowblock_hits_plain(*args),))
+            # A buffer of one key: the count overflows, and the one re-run
+            # at the exact count gives the same hits.
+            before = cuda_lev2.HITS_KERNEL.launches
+            again = cuda_lev2.lev2_hits(*args, cap=1)
+            reruns = cuda_lev2.HITS_KERNEL.launches - before
+            torch.cuda.synchronize()
+            if launched != 1 or reruns != 1 + (got[0].numel() > 1) or not torch.equal(again, got[0]):
+                raise AssertionError(f"kernel I thresholded ({name}): {launched} launches, "
+                                     f"{reruns} with an overflowing buffer, hits equal "
+                                     f"{torch.equal(again, got[0])}")
+            what = "hit pairs (in order)"
+            route = cuda_lev2.hits_route(W, thr)
+            rname = f"I:{route}"
+            cells = int(cells_t)
+            hits = int(got[0].numel())
+            n_bytes = nbytes(codes, lens) + 8 * hits
+            ops = OPS_PER_CELL["I"] * cells
+            jobs = cuda_lev2.rowblock_jobs(s_len, limit, tile)
+            detail = (f"n={n} W={W} thr={thr} tile={tile} ({route} route, {jobs.shape[0]} jobs), "
+                      f"{cells} DP cells, {hits} hits; an overflowing buffer re-ran once")
+            extra = dict(cells=cells, hits=hits, lev2_route=route)
+            run = lambda: cuda_lev2.lev2_hits(*args)  # noqa: E731
         torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        if not all(x.shape == y.shape and torch.equal(x, y) for x, y in zip(got, want)):
             raise AssertionError(f"kernel {key} ({name}): {what} differ from the plain version")
         err = max((float((x.double() - y.double()).abs().max()) for x, y in zip(got, want)
                    if x.numel()), default=0.0)
-        if key in "GS":
-            ms = event_ms(lambda: kern(dirs, lengths), 5, dev)
-        elif key == "H":
-            ms = event_ms(lambda: cuda_extend.extend_chunk(arena, xz, zy, w, pid, c_k, w_scale,
-                                                           strc), 5, dev)
-        else:
-            ms = event_ms(lambda: cuda_lev2.lev2_cross(a, la, b, lb), 5, dev)
+        ms = event_ms(run, 5, dev)
         bms, by = bound(n_bytes, ops)
+        if bms > ms:
+            raise AssertionError(f"kernel {key} ({name}): bound {bms:.4f} ms above the measured "
+                                 f"{ms:.4f} ms: a byte or cell count is wrong")
         r = res[rname]
         log(f"[kernels] {key} {name}: {detail}: {what} equal, kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}, {100 * bms / ms:.2f}%); "
@@ -1048,7 +1147,7 @@ STEPS = (
     ("sarlacc_tpu_torch.api.msa", "_build_library_host"),
     ("sarlacc_tpu_torch.api.msa", "pair_maps_device"),
     ("sarlacc_tpu_torch.ops.msa", "_arena_place_kernel"),
-    ("sarlacc_tpu_torch.api.msa", "_extend_chunk_kernel"),
+    ("sarlacc_tpu_torch.api.msa", "_extend_library"),
     ("sarlacc_tpu_torch.ops.cuda_walk", "pair_walk"),
     ("sarlacc_tpu_torch.ops.msa", "_merge_entries"),
     ("sarlacc_tpu_torch.ops.cuda_walk", "merge_dp_walk"),
@@ -1128,6 +1227,64 @@ def timed_steps(torch, steps=STEPS, qualify=False):
             setattr(owner, name, orig)
 
     return totals, restore
+
+
+#: torch.Tensor methods that copy a tensor's values to the host.
+READBACK_METHODS = ("cpu", "item", "tolist", "__int__", "__float__", "__bool__", "__index__",
+                    "to")
+
+
+def count_readbacks(torch, steps):
+    """Wrap each step (module, name) so that each call records its host
+    readbacks: a CUDA tensor's values brought to the host by one of
+    :data:`READBACK_METHODS`, which are patched only while a wrapped call
+    runs (nothing else, a step timer neither, runs patched).  Returns
+    ({name: [readbacks a call]}, undo)."""
+    import importlib
+
+    calls: dict[str, list] = {}
+    active = []  # the counters of the calls in progress
+    originals = {meth: getattr(torch.Tensor, meth) for meth in READBACK_METHODS}
+
+    def counted(meth):
+        orig = originals[meth]
+
+        def method(self, *a, **kw):
+            out = orig(self, *a, **kw)
+            if self.is_cuda and not (torch.is_tensor(out) and out.is_cuda):
+                active[-1] += 1
+            return out
+
+        return method
+
+    patched = {meth: counted(meth) for meth in READBACK_METHODS}
+    undo = []
+    for mod_name, attr in steps:
+        owner = importlib.import_module(mod_name)
+        orig = getattr(owner, attr)
+        calls[attr] = []
+
+        def wrapped(*a, _orig=orig, _calls=calls[attr], **kw):
+            if not active:
+                for meth, fn in patched.items():
+                    setattr(torch.Tensor, meth, fn)
+            active.append(0)
+            try:
+                return _orig(*a, **kw)
+            finally:
+                _calls.append(active.pop())
+                if not active:
+                    for meth, fn in originals.items():
+                        setattr(torch.Tensor, meth, fn)
+
+        setattr(owner, attr, wrapped)
+        undo.append((owner, attr, orig))
+
+    def restore():
+        for owner, name, orig in reversed(undo):
+            setattr(owner, name, orig)
+
+    return calls, restore
 
 
 def step_report(totals) -> str:
@@ -1225,6 +1382,11 @@ def phase_pipeline(torch, st, batch, kernels, required, dev, keep_waves=False):
     log(f"[pipeline] warm-up pass {warm_s:.3f} s; synchronized step times: "
         f"{step_report(totals)}; kernel-B shapes {sorted(pair_calls)}; kernel E, F, G, H "
         f"and I shapes {sorted(walk_calls)}")
+    lib_s, lib_n = totals["_build_library_device"]
+    ext_s, ext_n = totals["_extend_library"]
+    log(f"[pipeline] device library: _build_library_device {lib_s:.3f} s over {lib_n} builds "
+        f"(synchronised), of it the extension (msa.triplet, _extend_library: kernel H) "
+        f"{ext_s:.3f} s over {ext_n} calls")
     log("[pipeline] stage profiler after the warm-up pass:\n" + get_profiler().report())
     # E-I's copies (kernel F's are kernel B's direction tensors, H's keep the
     # library's arena) go before the timed pass, so they are not in its
@@ -1315,6 +1477,7 @@ def phase_msa_library(torch, st, reads, filt, kernels, dev, n_slice=20):
     torch.cuda.synchronize()
     dev_s = time.perf_counter() - t0
     dev_peak = torch.cuda.max_memory_allocated() / 2**30
+    seg_args = args
     t0 = time.perf_counter()
     (tab_h, _), seg_h, id_h = msa._build_library_host(*args, dev)
     torch.cuda.synchronize()
@@ -1342,8 +1505,9 @@ def phase_msa_library(torch, st, reads, filt, kernels, dev, n_slice=20):
         same += int(np.array_equal(d, h))
         quantum += int(np.count_nonzero(d[:, 2] != h[:, 2]))
     log(f"[msa_library] segment 1 of the pipeline's groups ({len(seg)} groups, {len(seg_h)} "
-        f"pairs, {tab_h.shape[0]} entries): device route {dev_s:.3f} s (peak allocated "
-        f"{dev_peak:.2f} GiB), host route {host_s:.3f} s; identities within {id_err:.3g}, "
+        f"pairs, {tab_h.shape[0]} entries): device route {dev_s:.3f} s synchronised (peak "
+        f"allocated {dev_peak:.2f} GiB), host route {host_s:.3f} s; identities within "
+        f"{id_err:.3g}, "
         f"{same} of {len(seg_h)} pairs bit-equal, {quantum} entries one quantum apart")
 
     # The card against the CPU on a slice, one pinned segment budget: the
@@ -1374,6 +1538,16 @@ def phase_msa_library(torch, st, reads, filt, kernels, dev, n_slice=20):
     counts = read_counts(kernels)
     if counts["sarlacc_extend_kernel"] == 0:
         raise AssertionError(f"kernel H never launched in the msa_library phase: {counts}")
+    # The segment's host readbacks, on one more build outside the timed one
+    # and the launch counts.
+    builds, uncount = count_readbacks(torch, (("sarlacc_tpu_torch.api.msa",
+                                               "_build_library_device"),))
+    try:
+        msa._build_library_device(*seg_args, dev)
+    finally:
+        uncount()
+    log(f"[msa_library] segment 1's device build: {builds['_build_library_device'][0]} host "
+        f"readbacks")
     log(f"[msa_library] {len(sl)} groups ({len(seg_c)} pairs, {tab_c.shape[0]} entries): "
         f"device route on the card equal to device='cpu' (table, identities, strings; "
         f"segment budget pinned at 1 GiB); comparison {time.perf_counter() - t0:.1f} s; "
@@ -1617,23 +1791,25 @@ UMI_WORKLOADS = (
 )
 
 
-def phase_umi(torch, st, kernels, lev2, dev):
-    """umi_group on the card: timed (the row-block scan and kernel I's
-    dispatcher ``_lev2_block`` with synchronised step timers; kernel I's
-    first call a row-block shape recorded), and the row-block workloads'
-    slices compared with device='cpu' (tolerance 0: the same groups).
-    Returns (the launch counts of the timed calls, kernel I's rows)."""
+def phase_umi(torch, st, kernels, hits_kernel, dev):
+    """umi_group on the card: timed (the row-block scan with a synchronised
+    step timer, its host readbacks counted; kernel I's
+    thresholded form recorded a call), and the row-block workloads' slices
+    compared with device='cpu' (tolerance 0: the same groups).  Returns
+    (the launch counts of the timed calls, kernel I's rows)."""
     import numpy as np
 
     rows, counts, recorded = [], {}, {}
+    scan = ("sarlacc_tpu_torch.ops.levenshtein", "_neighbor_pairs_rowblock")
     for name, n, umi_len, k, thr, scans in UMI_WORKLOADS:
         batch = umi_batch(n, umi_len, k)
         st.umi_group(batch.take(np.arange(n // 4)), threshold1=thr, device=dev)  # warm-up
-        totals, restore = timed_steps(
-            torch, (("sarlacc_tpu_torch.ops.levenshtein", "_neighbor_pairs_rowblock"),
-                    ("sarlacc_tpu_torch.ops.levenshtein", "_lev2_block"))
-        )
-        calls, unrecord = record_calls(torch, f"umi:{name}", "I")
+        # The counter wraps the scan first, so the timer's synchronisations
+        # stay outside what it counts (its patches are in place only while
+        # the scan runs).
+        scan_calls_rb, uncount = count_readbacks(torch, (scan,))
+        totals, restore = timed_steps(torch, (scan,))
+        calls, unrecord = record_calls(torch, f"umi:{name}", "T")
         reset(kernels)
         try:
             torch.cuda.synchronize()
@@ -1644,23 +1820,29 @@ def phase_umi(torch, st, kernels, lev2, dev):
         finally:
             unrecord()
             restore()
+            uncount()
         for kern, c in read_counts(kernels).items():
             counts[kern] = counts.get(kern, 0) + c
         recorded.update(calls)
-        if scans and lev2.launches == 0:
-            raise AssertionError(f"umi {name}: kernel I never launched in the row-block scan")
+        if scans and hits_kernel.launches == 0:
+            raise AssertionError(f"umi {name}: kernel I's thresholded form never launched in "
+                                 f"the row-block scan")
         scan_s, scan_calls = totals["_neighbor_pairs_rowblock"]
-        block_s, block_calls = totals["_lev2_block"]
         members = np.sort(np.concatenate(groups))
         if not np.array_equal(members, np.arange(n)):
             raise AssertionError(f"umi {name}: the groups do not partition the {n} UMIs")
         if (scan_calls > 0) != scans:
             raise AssertionError(f"umi {name}: row-block scan calls {scan_calls}, expected "
                                  f"{'some' if scans else 'none'}")
+        rb = scan_calls_rb["_neighbor_pairs_rowblock"]
+        if any(r > 3 for r in rb):
+            raise AssertionError(f"umi {name}: a row-block scan read back more than three "
+                                 f"times: {rb}")
         line = (f"[umi] {name}: {n} UMIs of {umi_len} bp, threshold {thr}: {elapsed:.3f} s = "
                 f"{n / elapsed:.1f} UMIs/s, {len(groups)} groups; row-block scan "
-                f"{scan_s:.3f} s synchronised over {scan_calls} calls, of it _lev2_block "
-                f"(kernel I) {block_s:.3f} s over {block_calls} calls")
+                f"{scan_s:.3f} s synchronised over {scan_calls} calls (host readbacks a call: "
+                f"{rb}; kernel I's thresholded form "
+                f"{hits_kernel.launches} launches)")
         if scans:
             sl = batch.take(np.arange(2500))
             t0 = time.perf_counter()
@@ -1867,8 +2049,11 @@ def phase_mesh(torch, st, batch, demux, kernels, dev, smi, earlier, earlier_s):
     for key in ("histogram1", "histogram2"):
         if int(thr[key].sum()) != len(batch):
             raise AssertionError(f"mesh: {key} sums to {int(thr[key].sum())}, not {len(batch)}")
-    # Every kernel but kernel G's string walk (quality_align takes no mesh).
-    if min(counts[k.symbol] for k in kernels if k.symbol != "sarlacc_string_kernel") == 0:
+    # Every kernel but kernel G's string walk (quality_align takes no mesh)
+    # and kernel I's thresholded form (the mesh's 12-bp UMIs take the native
+    # filter, not the row-block scan).
+    if min(counts[k.symbol] for k in kernels
+           if k.symbol not in ("sarlacc_string_kernel", "sarlacc_lev2_hits")) == 0:
         raise AssertionError(f"a kernel never launched in the mesh run: {counts}")
     log(f"[mesh] {len(batch)} reads on make_mesh(4) (4 shards of cuda:0), every output equal "
         f"to the solo call's; histograms sum to {len(batch)}; card {smi}; seconds mesh / solo: "
@@ -2009,14 +2194,14 @@ def main(argv=None) -> int:
     from sarlacc_tpu_torch.ops.cuda_align import DIR_KERNEL, SCORE_KERNEL, SEGMENTS_KERNEL
     from sarlacc_tpu_torch.ops.cuda_backtrack import QMAP_KERNEL, STRING_KERNEL
     from sarlacc_tpu_torch.ops.cuda_extend import EXTEND_KERNEL
-    from sarlacc_tpu_torch.ops.cuda_lev2 import LEV2_KERNEL
+    from sarlacc_tpu_torch.ops.cuda_lev2 import HITS_KERNEL, LEV2_KERNEL
     from sarlacc_tpu_torch.ops.cuda_msa import PAIR_KERNEL
     from sarlacc_tpu_torch.ops.cuda_walk import MERGE_KERNEL, WALK_KERNEL
 
     from sarlacc_tpu_torch.tools import op_mix, op_rates, score_ablation
 
     kernels = (DIR_KERNEL, PAIR_KERNEL, SCORE_KERNEL, SEGMENTS_KERNEL, MERGE_KERNEL, WALK_KERNEL,
-               QMAP_KERNEL, STRING_KERNEL, EXTEND_KERNEL, LEV2_KERNEL)
+               QMAP_KERNEL, STRING_KERNEL, EXTEND_KERNEL, LEV2_KERNEL, HITS_KERNEL)
     main_path = (DIR_KERNEL, PAIR_KERNEL, MERGE_KERNEL, WALK_KERNEL, QMAP_KERNEL, EXTEND_KERNEL)
     smi = phase_environment(torch)
     phase_build(kernels + tuple(score_ablation.KERNELS.values()) + tuple(op_mix.KERNELS.values())
@@ -2058,8 +2243,8 @@ def main(argv=None) -> int:
     by_path["distributed"], calls = phase_distributed(torch, st, bench, SCORE_KERNEL)
     krows += replay_rows(torch, calls, dev)
     del bench, aligned, demux, solo, calls
-    by_path["umi"], urows = phase_umi(torch, st, kernels, LEV2_KERNEL, dev)
-    krows += urows  # kernel I at the row-block scans' own shapes
+    by_path["umi"], urows = phase_umi(torch, st, kernels, HITS_KERNEL, dev)
+    krows += urows  # kernel I's thresholded form at the row-block scans' own shapes
     tool_checks, tool_counts, _ = phase_tools(torch, dev)
     by_path["tools"] = {k.symbol: tool_counts.get(k.symbol, 0) for k in kernels}
 
@@ -2079,14 +2264,17 @@ def main(argv=None) -> int:
         "S": (STRING_KERNEL, "sarlacc_tpu/ops/backtrack.py:167"),
         "H": (EXTEND_KERNEL, "sarlacc_tpu/ops/msa.py:1320"),
         "I": (LEV2_KERNEL, "sarlacc_tpu/ops/levenshtein.py:139"),
+        "T": (HITS_KERNEL, "sarlacc_tpu/ops/levenshtein.py:249"),
     }
     report = []
     for r in krows:
         kern, repl = replaces[r["key"]]
         launches, each = path_launches(kern.symbol)
         extra = {k: r[k] for k in ("gcups", "tile", "lanes", "passes", "block_ms", "merge_route",
-                                   "entries", "chain_rows", "fetches", "steps", "cells",
-                                   "lev2_route", "registers", "spill_bytes",
+                                   "entries", "pairs", "chunks", "chain_rows", "fetches",
+                                   "steps", "cells", "hits", "path_cells", "lev2_route",
+                                   "registers",
+                                   "spill_bytes",
                                    "achieved_occupancy") if k in r}
         if "route" in r:  # kernel B's route within its CUDA source; "route" names the language
             extra["pair_route"] = r["route"]

@@ -12,7 +12,7 @@ progressive MSA with the structure of the reference's SeqAn call
    residue pairs weighted by the alignment's percent identity (float32 on
    the device route, float64 on the host route, as in the JAX package).
 2. **Triplet extension** — the consistency transform: on the device
-   (:func:`..ops.msa._extend_chunk_kernel`), or in the native host library
+   (:func:`..ops.msa._extend_library`: kernel H), or in the native host library
    (``triplet_extend``), one group per thread.
 3. **Merge order** — a neighbour-joining tree on ``1 - identity`` distances.
 4. **Progressive merges** — profile-profile maximal-weighted-trace DP with
@@ -35,13 +35,13 @@ import torch
 
 from ..core.encode import SeqBatch
 from ..core.frame import Frame
-from ..device import memory_budget
+from ..device import env_number, finite_float, memory_budget, record_budget
 from ..native import triplet_extend_native
 from ..ops.msa import (
-    ARENA_IDENT_ROW,
     EXTEND_CHUNK_ELEMS,
     _bkt,
-    _extend_chunk_kernel,
+    _bkt_arr,
+    _extend_library,
     banded_pair_align,
     merge_wave_from_library,
     pair_maps_device,
@@ -400,104 +400,96 @@ def _sl_class(v: int) -> int:
     return _SL_LADDER[-1]
 
 
+def _library_jobs(by_group, active):
+    """The device library's job tables, in the JAX package's job order
+    (group by group, each group's pairs x < y by ``np.triu_indices``):
+    (jobs int32 [J, 4] (position in ``active``, x, y, g), first_job int32
+    [len(active)], read indices ga and gb [J], each job's slot class SL).
+    Numpy over whole arrays, one ``np.triu_indices`` a group size."""
+    sizes = np.asarray([by_group[gi].size for gi in active], np.int64)
+    npairs = sizes * (sizes - 1) // 2
+    first = np.zeros(len(active), np.int64)
+    np.cumsum(npairs[:-1], out=first[1:])
+    tri = {g: np.triu_indices(g, k=1) for g in np.unique(sizes).tolist()}
+    xs = np.concatenate([tri[g][0] for g in sizes.tolist()] + [np.zeros(0, np.int64)])
+    ys = np.concatenate([tri[g][1] for g in sizes.tolist()] + [np.zeros(0, np.int64)])
+    grp = np.repeat(np.arange(len(active)), npairs)
+    g_j = sizes[grp]
+    members = np.concatenate([by_group[gi] for gi in active] + [np.zeros(0, np.int64)])
+    mstart = np.zeros(len(active), np.int64)
+    np.cumsum(sizes[:-1], out=mstart[1:])
+    ga = members[mstart[grp] + xs]
+    gb = members[mstart[grp] + ys]
+    lut = np.asarray([_sl_class(max(g - 1, 1)) for g in range(int(sizes.max(initial=0)) + 1)],
+                     np.int64)  # the slot class of each group size
+    sl = lut[g_j]
+    jobs = np.stack([grp, xs, ys, g_j], axis=1).astype(np.int32)
+    return jobs, first.astype(np.int32), ga, gb, sl
+
+
+def _library_chunks(sl, strc):
+    """Kernel H's launch order: the jobs sorted stably by (SL, strc) class,
+    each class cut into chunks of at most ``min(1024, EXTEND_CHUNK_ELEMS /
+    (SL strc))`` pairs.  Returns (order int32 [J], [(q0, q1, SL, strc)])."""
+    order = np.lexsort((strc, sl))
+    chunks = []
+    cls_sl, cls_strc = sl[order], strc[order]
+    edges = np.flatnonzero((np.diff(cls_sl) != 0) | (np.diff(cls_strc) != 0)) + 1
+    for c0, c1 in zip(np.r_[0, edges].tolist(), np.r_[edges, order.size].tolist()):
+        s, w = int(cls_sl[c0]), int(cls_strc[c0])
+        cp = min(1024, max(1, EXTEND_CHUNK_ELEMS // (s * w)))
+        chunks += [(q, min(q + cp, c1), s, w) for q in range(c0, c1, cp)]
+    return order.astype(np.int32), chunks
+
+
 def _build_library_device(
     codes, lengths, by_group, active, match, mismatch, go, ge, bandwidth, device
 ):
     """Extended T-Coffee library built on ``device``.
 
     The pair walks' matched positions stay on the device as position maps
-    (:func:`..ops.msa.pair_maps_device`); the consistency extension
-    composes them (:func:`..ops.msa._extend_chunk_kernel`) in launches
-    classed by (slot count, x-length bucket).  Only per-pair identities and
-    entry counts come back to the host.
+    (:func:`..ops.msa.pair_maps_device`), beside the float32 identities;
+    the consistency extension composes them (:func:`..ops.msa._extend_library`:
+    kernel H on the card, which derives every pair's slots itself from the
+    per-job and per-group tables) in launches classed by (slot count,
+    x-length bucket), with one readback of the pairs' entry counts.  The
+    host side is numpy over whole arrays.
 
     Returns (lib_dev = (int32 [T, 3] table on ``device``, dequantization
     factor), pair_seg {(group, x, y): (start, length)} for every pair,
     idents per group).  Identities, weights and each pair's entries (a, then
     b, ascending) equal the JAX package's default route.
     """
-    jobs: list[tuple[int, int, int]] = []
-    jobid: dict[tuple[int, int, int], int] = {}
-    for gi in active:
-        xs, ys = np.triu_indices(by_group[gi].size, k=1)
-        for x, y in zip(xs, ys):
-            jobid[(gi, int(x), int(y))] = len(jobs)
-            jobs.append((gi, int(x), int(y)))
-
     w_scale = _lib_w_scale(by_group, active)
     idents = [np.ones((by_group[gi].size, by_group[gi].size)) for gi in active]
-    if not jobs:
+    jobs, first_job, ga, gb, sl = _library_jobs(by_group, active)
+    if not jobs.shape[0]:
         table = torch.zeros((1, 3), dtype=torch.int32, device=device)
         return (table, np.float32(1.0 / w_scale)), {}, idents
 
-    ga = np.asarray([by_group[g][x] for g, x, y in jobs])
-    gb = np.asarray([by_group[g][y] for g, x, y in jobs])
     with profiler("msa.pair_library"):
-        arena, fracs = pair_maps_device(
+        arena, fracs, fracs_dev = pair_maps_device(
             codes, lengths, ga, gb, match, mismatch, go, ge, bandwidth, device,
         )
-    pos_of = {gi: pos for pos, gi in enumerate(active)}
-    for i, (gi, x, y) in enumerate(jobs):
-        idents[pos_of[gi]][x, y] = idents[pos_of[gi]][y, x] = fracs[i]
-
-    def dir_row(gi, u, v):
-        """Arena row of the u -> v position map."""
-        if u < v:
-            return 2 + 2 * jobid[(gi, u, v)]
-        return 3 + 2 * jobid[(gi, v, u)]
-
-    stride = arena.shape[1]
-    classes: dict[tuple[int, int], list[tuple[int, int, int]]] = {}
-    for gi in active:
-        g = by_group[gi].size
-        sl = _sl_class(max(g - 1, 1))
-        for x, y in zip(*np.triu_indices(g, k=1)):
-            strc = min(_bkt(int(lengths[by_group[gi][x]]) + 1, 128), stride)
-            classes.setdefault((sl, strc), []).append((gi, int(x), int(y)))
-
-    with profiler("msa.triplet"):
-        counts = torch.zeros(len(jobs) + 1, dtype=torch.int64, device=device)
-        w_scale_t = torch.tensor(np.float32(w_scale), device=device)
-        parts, chunks = [], []
-        for sl, strc in sorted(classes):
-            prs = classes[(sl, strc)]
-            cp = min(1024, max(1, EXTEND_CHUNK_ELEMS // (sl * strc)))
-            for c0 in range(0, len(prs), cp):
-                chunk = prs[c0 : c0 + cp]
-                xz = np.zeros((len(chunk), sl), np.int64)
-                zy = np.zeros((len(chunk), sl), np.int64)
-                ws = np.zeros((len(chunk), sl), np.float32)
-                pid = np.zeros(len(chunk), np.int64)
-                for r, (gi, x, y) in enumerate(chunk):
-                    ident = idents[pos_of[gi]]
-                    pid[r] = jobid[(gi, x, y)]
-                    xz[r, 0] = dir_row(gi, x, y)
-                    zy[r, 0] = ARENA_IDENT_ROW
-                    ws[r, 0] = ident[x, y] * 100.0
-                    s = 1
-                    for z in range(by_group[gi].size):
-                        if z == x or z == y:
-                            continue
-                        xz[r, s] = dir_row(gi, x, z)
-                        zy[r, s] = dir_row(gi, z, y)
-                        ws[r, s] = min(ident[x, z], ident[z, y]) * 100.0
-                        s += 1
-                parts.append(_extend_chunk_kernel(
-                    arena,
-                    *(torch.as_tensor(a, device=device) for a in (xz, zy, ws, pid)),
-                    counts, w_scale_t, strc,
-                ))
-                chunks.append(pid)
-        counts_np = counts.cpu().numpy()
-
-    pair_seg: dict = {}
     at = 0
-    for pid in chunks:
-        for i in pid:
-            n = int(counts_np[i])
-            pair_seg[jobs[i]] = (at, n)
-            at += n
-    table = torch.cat(parts) if at else torch.zeros((1, 3), dtype=torch.int32, device=device)
+    for pos, gi in enumerate(active):
+        n = jobs.shape[0] if pos + 1 == len(active) else int(first_job[pos + 1])
+        xs, ys = jobs[at:n, 1], jobs[at:n, 2]
+        idents[pos][xs, ys] = idents[pos][ys, xs] = fracs[at:n]
+        at = n
+
+    # A-positions a pair composes: its x-length plus one, pow2 from 128.
+    strc = np.minimum(_bkt_arr(np.asarray(lengths)[ga].astype(np.int64) + 1, 128), arena.shape[1])
+    order, chunks = _library_chunks(sl, strc)
+    with profiler("msa.triplet"):
+        table, off = _extend_library(
+            arena, jobs, first_job, fracs_dev, order, chunks, np.float32(w_scale))
+
+    active_l = np.asarray(active)[jobs[order, 0]].tolist()
+    keys = zip(active_l, jobs[order, 1].tolist(), jobs[order, 2].tolist())
+    pair_seg = dict(zip(keys, zip(off[:-1].tolist(), np.diff(off).tolist())))
+    if not off[-1]:
+        table = torch.zeros((1, 3), dtype=torch.int32, device=device)
     return (table, np.float32(1.0 / w_scale)), pair_seg, idents
 
 
@@ -505,7 +497,12 @@ def _segment_lib_budget(device) -> int:
     """Estimated-library byte budget per MSA segment: 1/16 of the card's
     free memory at first probe, 1 GiB on the CPU.  Segments bound peak
     memory (library table, cost planes) while keeping launches thousands of
-    pairs wide."""
+    pairs wide.  ``SARLACC_MSA_SEG_BUDGET_GB`` (float GiB, floored at 64
+    MiB) replaces it, as in the JAX package; it changes the segment packing,
+    never the alignments.  A malformed value warns and keeps the default."""
+    gib = env_number("SARLACC_MSA_SEG_BUDGET_GB", finite_float, None)
+    if gib is not None:
+        return record_budget("lib_segment", device, max(int(gib * (1 << 30)), 64 << 20))
     return memory_budget(device, 1 / 16, 1 << 30, "lib_segment")
 
 

@@ -24,7 +24,7 @@ import numpy as np
 
 from ..core.encode import SeqBatch
 from ..core.quality import get_encoding
-from ..device import resolve_device
+from ..device import env_number, resolve_device
 from ..native import greedy_cluster_csr, greedy_cluster_weighted_csr
 from ..ops.levenshtein import _unique_rows, lev2_condensed, lev2_matrix, lev2_neighbor_pairs
 from ..parallel.context import mesh_device
@@ -34,7 +34,9 @@ __all__ = ["quality_mask", "expected_dist", "umi_group"]
 
 #: Below this many sequences the dense distance matrix is built; above it
 #: the sparse native search keeps memory O(neighbours) instead of O(n^2).
-SPARSE_MIN = 2048
+#: ``SARLACC_SPARSE_MIN`` overrides it at import, as in the JAX package (a
+#: malformed value warns and keeps 2048).
+SPARSE_MIN = env_number("SARLACC_SPARSE_MIN", int, 2048)
 
 
 def _as_batch(seqs) -> SeqBatch:

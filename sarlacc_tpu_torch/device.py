@@ -10,13 +10,20 @@ card's free memory at first probe (less a fixed reserve for the caching
 allocator's slack), or a fixed fallback on the CPU.  Probed once per
 process, so the pipeline's own allocations never shrink later budgets.
 Each budget is recorded under its name for :func:`budget_report`.
+:func:`env_number` reads the numeric environment knobs the JAX package
+reads, warning on a malformed value instead of raising.
 """
 
 from __future__ import annotations
 
+import math
+import os
+import warnings
+
 import torch
 
-__all__ = ["resolve_device", "memory_budget", "budget_report"]
+__all__ = ["resolve_device", "memory_budget", "record_budget", "budget_report", "env_number",
+           "finite_float"]
 
 #: Headroom kept out of every budget: allocator fragmentation, cuBLAS
 #: workspaces and the kernels' own scratch.
@@ -53,6 +60,36 @@ def memory_budget(device: torch.device, fraction: float, fallback: int, name: st
         out = max(int(_FREE_BYTES[index] * fraction), 64 << 20)
     _GIVEN[name] = (str(device), out)
     return out
+
+
+def record_budget(name: str, device: torch.device, out: int) -> int:
+    """Record a budget set otherwise than by :func:`memory_budget` (an
+    environment override) under ``name`` for :func:`budget_report`."""
+    _GIVEN[name] = (str(device), out)
+    return out
+
+
+def finite_float(text: str) -> float:
+    """``float(text)``, refusing NaN and the infinities (ValueError)."""
+    v = float(text)
+    if not math.isfinite(v):
+        raise ValueError(f"{text!r} is not finite")
+    return v
+
+
+def env_number(name: str, cast, default):
+    """``cast`` of the environment variable ``name`` when it is set and not
+    empty, else ``default``.  A value ``cast`` refuses warns with the
+    variable's name and gives ``default`` (the JAX package raises there)."""
+    text = os.environ.get(name)
+    if not text:
+        return default
+    try:
+        return cast(text)
+    except (ValueError, OverflowError):
+        warnings.warn(f"{name}={text!r} is not a valid {cast.__name__}; using the default "
+                      f"{default}", RuntimeWarning, stacklevel=2)
+        return default
 
 
 def budget_report() -> str:

@@ -258,9 +258,47 @@ def _neighbor_pairs_filtered(
     return ua.astype(np.int64), ub.astype(np.int64)
 
 
-#: DP cells (rows x cols x (L+1) int32 entries) per row-block launch group:
-#: 256 MiB per copy of the state, of which a group holds about five.
+#: DP cells (rows x cols x (L+1) int32 entries) per launch group of the
+#: plain row-block scan: 256 MiB per copy of the state, of which a group
+#: holds about five.
 _SCAN_CELLS = 1 << 26
+
+
+def _rowblock_hits_plain(c, lens, s_len, thr: int, limit: int, tile: int):
+    """The thresholded row-block scan's plain version (kernel I's
+    thresholded form, :func:`.cuda_lev2.lev2_hits`, on the same inputs):
+    row blocks of ``tile`` rows of the length-sorted codes ``c`` [n, W]
+    against columns ``j >= i`` up to the exact length prune ``hi_len +
+    limit``, several column tiles a launch group (bounded by
+    :data:`_SCAN_CELLS`), each group's distances by :func:`_lev2_scan`,
+    thresholded and compacted with ``torch.nonzero``.  Returns int64 keys
+    ``i * n + j`` of the hits, sorted (row-major, ascending j)."""
+    n, W = c.shape
+    dev = c.device
+    c = c.to(torch.int32)
+    TI = max(1, min(int(tile), n))
+    cols_per_group = max(TI, _SCAN_CELLS // (TI * (W + 1)) // TI * TI)
+    keys = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    for i0 in range(0, n, TI):
+        i1 = min(i0 + TI, n)
+        hi_len = int(s_len[i1 - 1])
+        j_end = min(max(int(np.searchsorted(s_len, hi_len + int(limit), side="right")), i0 + 1), n)
+        ig = torch.arange(i0, i1, device=dev)[:, None]
+        for j0 in range(i0, j_end, cols_per_group):
+            j1 = min(j0 + cols_per_group, j_end)
+            d2 = _lev2_scan(c[i0:i1, None, :], lens[i0:i1, None], c[None, j0:j1], lens[None, j0:j1])
+            jg = torch.arange(j0, j1, device=dev)[None, :]
+            hit = torch.nonzero((d2 <= thr) & (jg >= ig))
+            keys.append((hit[:, 0] + i0) * n + hit[:, 1] + j0)
+    return torch.sort(torch.cat(keys)).values
+
+
+def _rowblock_hits(c, lens, s_len, thr: int, limit: int, tile: int):
+    """The hits of one row-block scan as sorted int64 keys ``i * n + j``:
+    kernel I's thresholded form (:func:`.cuda_lev2.lev2_hits`) on CUDA
+    tensors, :func:`_rowblock_hits_plain` on CPU ones."""
+    run = cuda_lev2.lev2_hits if c.is_cuda else _rowblock_hits_plain
+    return run(c, lens, s_len, thr, limit, tile)
 
 
 def _neighbor_pairs_rowblock(
@@ -274,50 +312,30 @@ def _neighbor_pairs_rowblock(
     columns ``j >= i`` up to the exact length prune ``hi_len + limit`` (any
     pair costs at least 2 per length difference, so no pair beyond it can
     pass).  The diagonal is computed, not assumed: it is not free for rows
-    with N.  The code table lives on ``device``; :func:`_lev2_block`
-    computes several column tiles per launch group (bounded by
-    :data:`_SCAN_CELLS`), each group's hits compact with ``torch.nonzero``
-    (row-major, so ascending j per row), and the host reads back once per
-    row block.  The JAX kernel's fixed-capacity lane-sort compaction with
-    its overflow retry, and its two program classes, answer a TPU's costly
-    scatter and recompiles; here they have nothing to do.  Returns (i, j)
-    int64 in the input's index space.
+    with N.  The code table lives on ``device``; :func:`_rowblock_hits`
+    decides every pair of the scan at once (on the card kernel I's
+    thresholded form, which writes only the hits and their count: no
+    distance matrix, no compaction, one readback of the count and one of
+    the hits) and returns them row-major, ascending j within a row.  The
+    JAX kernel's fixed-capacity lane-sort compaction with its overflow
+    retry, and its two program classes, answer a TPU's costly scatter and
+    recompiles; here they have nothing to do.  Returns (i, j) int64 in the
+    input's index space.
     """
     n = codes.shape[0]
     dev = torch.device("cpu" if device is None else device)
     lengths = np.asarray(lengths, np.int32)
     perm = np.argsort(lengths, kind="stable").astype(np.int64)
     s_len = lengths[perm]
+    if n == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
     # DP columns: the longest string (positions past it are padding in
     # every row, and a row's distance never reads past its own length).
-    W = int(s_len[-1]) if n else 0
-    TI = max(1, min(int(tile), n))
-    cols_per_group = max(TI, _SCAN_CELLS // (TI * (W + 1)) // TI * TI)
-    c = torch.as_tensor(np.ascontiguousarray(codes[perm][:, :W], np.int32), device=dev)
+    W = int(s_len[-1])
+    c = torch.as_tensor(np.ascontiguousarray(codes[perm][:, :W], np.int8), device=dev)
     lens = torch.as_tensor(s_len, device=dev)
-
-    out_i: list[np.ndarray] = []
-    out_j: list[np.ndarray] = []
-    for i0 in range(0, n, TI):
-        i1 = min(i0 + TI, n)
-        hi_len = int(s_len[i1 - 1])
-        j_end = min(max(int(np.searchsorted(s_len, hi_len + int(limit), side="right")), i0 + 1), n)
-        ig = torch.arange(i0, i1, device=dev)[:, None]
-        hits = []
-        for j0 in range(i0, j_end, cols_per_group):
-            j1 = min(j0 + cols_per_group, j_end)
-            d2 = _lev2_block(c[i0:i1], lens[i0:i1], c[j0:j1], lens[j0:j1])
-            jg = torch.arange(j0, j1, device=dev)[None, :]
-            ok = (d2 <= thr) & (jg >= ig)
-            hits.append(torch.nonzero(ok) + torch.tensor([i0, j0], device=dev))
-        got = torch.cat(hits).cpu().numpy()  # one readback per row block
-        out_i.append(got[:, 0])
-        out_j.append(got[:, 1])
-    if not out_i:
-        return np.zeros(0, np.int64), np.zeros(0, np.int64)
-    si = np.concatenate(out_i).astype(np.int64)
-    sj = np.concatenate(out_j).astype(np.int64)
-    return perm[si], perm[sj]
+    keys = _rowblock_hits(c, lens, s_len, thr, limit, tile).cpu().numpy()  # the hits' readback
+    return perm[keys // n], perm[keys % n]
 
 
 def lev2_neighbor_pairs(
@@ -336,8 +354,8 @@ def lev2_neighbor_pairs(
     ``device`` (default CPU) in row blocks of ``tile``
     (:func:`_neighbor_pairs_rowblock`).  ``kcap`` is accepted for the JAX
     signature and ignored: it sizes the JAX kernel's per-row hit buffer,
-    and the port compacts hits with ``torch.nonzero`` instead.  Returns
-    (qi, qj) int32 arrays in original index space.
+    and the port's scan appends its hits to one buffer with an exact
+    count instead.  Returns (qi, qj) int32 arrays in original index space.
     """
     n_reads = codes.shape[0]
     if n_reads == 0:

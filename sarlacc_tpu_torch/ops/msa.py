@@ -7,14 +7,15 @@ Counterpart of ``sarlacc_tpu/ops/msa.py``:
   per bucket chunk (:func:`..ops.cuda_msa.banded_pair`), then the Gotoh
   walk (:func:`_pair_walk`) on the device; only the per-row matched
   positions come back.
-* :func:`pair_maps_device`, :func:`_extend_chunk_kernel` — the device
+* :func:`pair_maps_device`, :func:`_extend_library` — the device
   library (the JAX package's default route): the same launches, but each
   walk's matched positions stay on the device as forward and reverse
   position maps (:func:`_arena_place_kernel`) beside a float32 identity per
   pair (computed by the same walk), and the consistency extension composes
-  those maps into the packed entry table: kernel H (:mod:`.cuda_extend`)
-  on CUDA tensors, gathers and small sorts (:func:`_extend_chunk_plain`)
-  on CPU ones.
+  those maps into the packed entry table: kernel H (:mod:`.cuda_extend`,
+  which derives each pair's slots from per-job tables on chip) on CUDA
+  tensors, the slot tables by torch ops (:func:`_slot_tables`) and gathers
+  and small sorts (:func:`_extend_chunk_plain`) on CPU ones.
 * :func:`merge_wave_from_library` — one wave of progressive profile merges:
   the library entries decoded through the position->column maps
   (:func:`_merge_entry_targets`), then on CUDA tensors kernel E on them
@@ -662,13 +663,14 @@ def pair_maps_device(
 ):
     """Align every (ga[i], gb[i]) read pair and keep its path on ``device``.
 
-    Returns (arena int16 [2 + 2J, stride], fracs float64 [J]): pair i's
-    forward map (A-position -> matched B-position, 0 = none) is arena row
-    ``2 + 2i`` and its reverse map row ``3 + 2i``; row 0 is all zeros and
-    row 1 the identity.  ``stride`` is the pow2 (>= 128) above the longest
-    read.  ``fracs`` is each pair's float32 identity, held as float64 (it
-    feeds the guide tree).  Pairs and DP cells count on the
-    ``msa.pair_library`` stage.
+    Returns (arena int16 [2 + 2J, stride], fracs float64 [J], fracs_dev
+    float32 [J]): pair i's forward map (A-position -> matched B-position, 0
+    = none) is arena row ``2 + 2i`` and its reverse map row ``3 + 2i``; row 0
+    is all zeros and row 1 the identity.  ``stride`` is the pow2 (>= 128)
+    above the longest read.  ``fracs_dev`` is each pair's float32 identity
+    on ``device`` (kernel H's weights), ``fracs`` the same read back once and
+    held as float64 (it feeds the guide tree).  Pairs and DP cells count on
+    the ``msa.pair_library`` stage.
     """
     ga = np.asarray(ga, np.int64)
     gb = np.asarray(gb, np.int64)
@@ -680,23 +682,21 @@ def pair_maps_device(
     stride = _bkt(lmax + 1, 128)
     arena = torch.zeros((2 + 2 * J, stride), dtype=torch.int16, device=device)
     arena[ARENA_IDENT_ROW] = torch.arange(stride, dtype=torch.int16, device=device)
-    fracs = np.zeros(J, np.float64)
+    fracs_dev = torch.zeros(J, dtype=torch.float32, device=device)
     if J == 0:
-        return arena, fracs
+        return arena, np.zeros(0, np.float64), fracs_dev
     lo, hi, rows_c, W_c = _pair_buckets(lens_a, lens_b, bandwidth)
     codes = np.asarray(codes)
-    idents = []
     for rows_b, W_b, sub in _pair_launches(rows_c, W_c, device):
         _, jmat, ident = _run_pair_bucket(
             codes[ga[sub]], lens_a[sub], codes[gb[sub]], lens_b[sub],
             lo[sub], hi[sub], match, mismatch, gap_open, gap_ext,
             rows_b, W_b, device,
         )
-        _arena_place_kernel(arena, jmat, torch.as_tensor(2 + 2 * sub, device=device))
-        idents.append((sub, ident))
-    for sub, ident in idents:
-        fracs[sub] = ident.cpu().numpy().astype(np.float64)
-    return arena, fracs
+        sub_t = torch.as_tensor(sub, device=device)
+        _arena_place_kernel(arena, jmat, 2 + 2 * sub_t)
+        fracs_dev[sub_t] = ident.to(fracs_dev.device)
+    return arena, fracs_dev.cpu().numpy().astype(np.float64), fracs_dev
 
 
 def _arena_place_kernel(arena, jmat, arow):
@@ -722,12 +722,75 @@ def _arena_place_kernel(arena, jmat, arow):
     arena[arow + 1] = rev.to(arena.dtype)
 
 
-def _extend_chunk_kernel(arena, xz_rows, zy_rows, w_slots, pair_ids, counts, w_scale, strc: int):
-    """Consistency-extend one chunk of output pairs; returns its entries:
-    kernel H (:func:`.cuda_extend.extend_chunk`) on a CUDA arena,
-    :func:`_extend_chunk_plain` on a CPU one."""
-    run = cuda_extend.extend_chunk if arena.is_cuda else _extend_chunk_plain
-    return run(arena, xz_rows, zy_rows, w_slots, pair_ids, counts, w_scale, strc)
+def _extend_library(arena, jobs, first_job, fracs, order, chunks, w_scale):
+    """Consistency-extend every output pair of one library build; returns
+    (int32 [T, 3] entries, int64 numpy [J + 1] offsets): kernel H
+    (:func:`.cuda_extend.extend_library`) on a CUDA arena,
+    :func:`_extend_library_plain` on a CPU one."""
+    run = cuda_extend.extend_library if arena.is_cuda else _extend_library_plain
+    return run(arena, jobs, first_job, fracs, order, chunks, w_scale)
+
+
+def _slot_tables(jobs, first_job, fracs, jids, SL: int):
+    """The [CP, SL] slot tables of the jobs ``jids`` (kernel H derives the
+    same on chip): arena rows ``xz`` and ``zy`` (int64) and weights ``ws``
+    (float32).  ``jobs`` int64 [J, 4] (group, x, y, g), ``first_job`` int64
+    [groups], ``fracs`` the float32 identities, all on one device.
+
+    Slot 0 is the pair's own forward map through the identity row, weight
+    ident(x, y) * 100; slot s >= 1 is middle sequence z = s - 1 stepped past
+    x, then past y (z ascending, x and y skipped), rows x -> z and z -> y,
+    weight min(ident(x, z), ident(z, y)) * 100; slots s >= g - 1 are dead
+    (row 0, row 0, weight 0).  The row of u -> v is 2 + 2 jobid(u, v) for u <
+    v and 3 + 2 jobid(v, u) otherwise, jobid(u, v) = first + u g - u (u + 1)
+    / 2 + v - u - 1.  Weights round as the host's numpy did: float64 min
+    (the second only where smaller) times 100.0, then float32."""
+    grp, x, y, g = (c[:, None] for c in jobs[jids].unbind(1))
+    first = first_job[grp]
+    s = torch.arange(SL, device=jobs.device)[None, :]
+    z = s - 1
+    z = z + (z >= x)
+    z = z + (z >= y)
+
+    def row(u, v):
+        lo, hi = torch.minimum(u, v), torch.maximum(u, v)
+        return 2 + 2 * (first + lo * g - lo * (lo + 1) // 2 + hi - lo - 1) + (u > v)
+
+    live = s < g - 1
+    rxz = torch.where(s == 0, 2 + 2 * jids[:, None], row(x, z))
+    rzy = torch.where(s == 0, ARENA_IDENT_ROW, row(z, y))
+    f64 = fracs.to(torch.float64)
+    ixz = f64[torch.where(live, (rxz - 2) // 2, 0)]
+    izy = f64[torch.where(live, (rzy - 2) // 2, 0)]
+    w = torch.where(s == 0, ixz, torch.where(izy < ixz, izy, ixz)) * 100.0
+    xz = torch.where(live, rxz, ARENA_ZERO_ROW)
+    zy = torch.where(live, rzy, ARENA_ZERO_ROW)
+    return xz, zy, torch.where(live, w.to(torch.float32), 0.0)
+
+
+def _extend_library_plain(arena, jobs, first_job, fracs, order, chunks, w_scale):
+    """Kernel H's plain version on its own inputs
+    (:func:`.cuda_extend.extend_library`'s): each chunk's slot tables by
+    :func:`_slot_tables`, its entries by :func:`_extend_chunk_plain`,
+    concatenated in chunk order; returns (int32 [T, 3] entries, int64 numpy
+    [J + 1] exclusive offsets of each pair's entries in ``order``)."""
+    dev = arena.device
+    cuda_extend.check_chunks(jobs, order, chunks, arena.shape[1])
+    jobs_t = torch.as_tensor(np.asarray(jobs, np.int64), device=dev)
+    first_t = torch.as_tensor(np.asarray(first_job, np.int64), device=dev)
+    order_t = torch.as_tensor(np.asarray(order, np.int64), device=dev)
+    scale = torch.tensor(np.float32(w_scale), device=dev)
+    J = int(order_t.shape[0])
+    counts = torch.zeros(J, dtype=torch.int64, device=dev)
+    parts = [torch.zeros((0, 3), dtype=torch.int32, device=dev)]
+    for q0, q1, sl, strc in chunks:
+        jids = order_t[q0:q1]
+        xz, zy, ws = _slot_tables(jobs_t, first_t, fracs, jids, sl)
+        parts.append(_extend_chunk_plain(
+            arena, xz, zy, ws, torch.arange(q0, q1, device=dev), counts, scale, strc))
+    off = np.zeros(J + 1, np.int64)
+    np.cumsum(counts.cpu().numpy(), out=off[1:])
+    return torch.cat(parts), off
 
 
 def _extend_chunk_plain(arena, xz_rows, zy_rows, w_slots, pair_ids, counts, w_scale, strc: int):

@@ -9,8 +9,8 @@ JAX, so it also runs on a machine that has only PyTorch:
 and kernel B must give directions bit-identical and scores equal to their
 plain PyTorch versions on the same card, kernels C and D scores equal
 to theirs, kernels E and F jmat and identities equal to theirs, kernel G
-its query maps and emissions, H its library entries and counts and I its
-distances, across the shapes each kernel's launch configuration branches
+its query maps and emissions, H its library entries and pair offsets, I
+its distances and its thresholded form its hits, across the shapes each kernel's launch configuration branches
 on; with the plain walks, extension and Levenshtein scan made to raise on
 a CUDA tensor, the entry points that reach them still run on the card.
 """
@@ -1083,58 +1083,89 @@ def test_backtrack_walks_on_malformed_planes(cuda_device, R, l1, n_pad, n):
     assert int(ncols.max()) == -(-(R + l1 + 9) // 8) * 8 or n == 0
 
 
-def _extend_chunk(rng, CP, SL, STR, n_rows, positions):
-    """A random arena and one chunk's slot tables (dead slots, a pad pair
-    last, pair 0's first four slots one run whose tree sum rounds
-    otherwise than its slot-order sum)."""
-    arena = np.where(rng.random((n_rows, STR)) < 0.25, 0,
-                     rng.integers(1, positions, (n_rows, STR))).astype(np.int16)
-    arena[0] = 0
+def _extend_build(rng, sizes, STR, positions, identity=False):
+    """Kernel H's inputs for one library build over groups of ``sizes``
+    reads: the job tables as ``_build_library_device`` makes them, an arena
+    of random position maps (or identity maps, so that every slot of a pair
+    reaches one b: runs of g - 1 lanes), random float32 identities and the
+    build's chunks (two A-position classes)."""
+    from sarlacc_tpu_torch.api import msa as port_api_msa
+
+    by_group, at = [], 0
+    for g in sizes:
+        by_group.append(np.arange(at, at + g))
+        at += g
+    jobs, first_job, _, _, sl = port_api_msa._library_jobs(by_group, list(range(len(sizes))))
+    J = jobs.shape[0]
+    rows = 2 + 2 * J
+    if identity:
+        arena = np.zeros((rows, STR), np.int16)
+        for r in range(rows):
+            n = int(rng.integers(STR // 2, STR))
+            arena[r, :n] = np.arange(n)
+    else:
+        arena = np.where(rng.random((rows, STR)) < 0.25, 0,
+                         rng.integers(1, positions, (rows, STR))).astype(np.int16)
+        arena[0] = 0
     arena[1] = np.arange(STR)
-    arena[2] = np.where(np.arange(STR) % 3, 7, 0)
-    xz = rng.integers(3, n_rows, (CP, SL))
-    zy = rng.integers(1, n_rows, (CP, SL))
-    ws = (rng.random((CP, SL)) * 100).astype(np.float32)
-    dead = rng.random((CP, SL)) < 0.2
-    xz[dead], ws[dead] = 0, 0.0
-    if SL >= 4:
-        xz[0], ws[0] = 0, 0.0
-        xz[0, :4], zy[0, :4] = 2, 1
-        ws[0, :4] = [2.5, 2.0 ** -23, 2.0 ** -23, 2.0 ** -23]
-    xz[-1], zy[-1], ws[-1] = 0, 0, 0.0
-    pid = rng.permutation(CP + 4)[:CP]
-    pid[-1] = CP + 4
-    return arena, xz, zy, ws, pid
+    fracs = rng.random(J).astype(np.float32)
+    strc = np.where(np.arange(J) % 3 == 0, STR, max(128, STR // 2)).astype(np.int64)
+    order, chunks = port_api_msa._library_chunks(sl, strc)
+    return arena, jobs, first_job, fracs, order, chunks
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("CP,SL,STR,strc,positions", [
-    (6, 6, 128, 128, 40), (40, 10, 512, 300, 200), (9, 32, 256, 256, 3),
-    (1024, 16, 1024, 1024, 700), (1, 2, 128, 0, 40),
+@pytest.mark.parametrize("sizes,STR,positions,identity", [
+    ([2, 2, 5, 3], 128, 40, False),      # g = 2 and dead slots
+    ([7, 11, 4], 512, 200, False),       # two 256-item tiles a pair, strc 512 and 256
+    ([33, 3], 256, 3, False),            # the 32-slot class, few positions: long runs
+    ([33], 128, 0, True),                # identity maps: runs of 32 lanes
+    ([17] * 8, 1024, 700, False),        # pipeline-sized: 1 088 pairs x 16 slots x 1 024
 ])
-def test_extend_kernel_matches_plain(cuda_device, CP, SL, STR, strc, positions):
-    """Kernel H against the plain extension on the same card: the entries
-    (a, b, weight) and the counts bit-equal, at small chunks, a chunk with
-    runs of 32 slots on 3 positions, and a pipeline-sized chunk (1 024
-    pairs x 16 slots x 1 024 positions)."""
+def test_extend_kernel_matches_plain(cuda_device, sizes, STR, positions, identity):
+    """Kernel H against its plain version on the same card, on one library
+    build: the entries (a, b, weight) and the pairs' offsets bit-equal, with
+    2 C + 1 launches for C chunks."""
     from sarlacc_tpu_torch.ops import cuda_extend
 
-    rng = np.random.default_rng(CP + SL + strc)
-    arena, xz, zy, ws, pid = _extend_chunk(rng, CP, SL, STR, 40, positions)
-    t = [torch.as_tensor(x, device=cuda_device) for x in (arena, xz, zy, ws, pid)]
-    scale = torch.tensor(np.float32(0.61 if SL != 6 else 1.0), device=cuda_device)
-    c_k = torch.zeros(CP + 5, dtype=torch.int64, device=cuda_device)
-    c_p = torch.zeros_like(c_k)
+    rng = np.random.default_rng(sum(sizes) + STR)
+    arena, jobs, first_job, fracs, order, chunks = _extend_build(rng, sizes, STR, positions,
+                                                                 identity)
+    args = (torch.as_tensor(arena, device=cuda_device), jobs, first_job,
+            torch.as_tensor(fracs, device=cuda_device), order, chunks, np.float32(0.61))
     before = cuda_extend.EXTEND_KERNEL.launches
-    got = port_msa._extend_chunk_kernel(*t, c_k, scale, strc)
-    assert cuda_extend.EXTEND_KERNEL.launches == before + (2 if got.shape[0] else 1)
-    want = port_msa._extend_chunk_plain(*t, c_p, scale, strc)
+    got, off = port_msa._extend_library(*args)
+    writes = sum(off[q1] > off[q0] for q0, q1, _, _ in chunks)
+    assert cuda_extend.EXTEND_KERNEL.launches == before + len(chunks) + 1 + writes
+    want, want_off = port_msa._extend_library_plain(*args)
     torch.cuda.synchronize()
-    assert torch.equal(got, want) and torch.equal(c_k, c_p)
-    assert int(c_k[CP + 4]) == 0
-    if SL == 6:
-        pair0 = got[: int(c_k[pid[0]])]
-        assert set(pair0[pair0[:, 1] == 7, 2].tolist()) == {2}
+    assert torch.equal(got, want) and np.array_equal(off, want_off)
+    assert off[-1] > 0 and got.shape == (off[-1], 3)
+
+
+@pytest.mark.cuda
+def test_extend_kernel_weights_round_as_numpy(cuda_device):
+    """Identities whose products with 100 sit on float32 ties: the kernel's
+    entries equal the plain version's, whose weights are numpy's float64
+    product rounded once to float32."""
+    rng = np.random.default_rng(3)
+    arena, jobs, first_job, _, order, chunks = _extend_build(rng, [6, 5], 128, 20)
+    fracs = []
+    while len(fracs) < jobs.shape[0]:
+        f = np.float32(rng.random())
+        p = np.float64(f) * 100.0
+        lo = np.float64(np.float32(p)) if np.float64(np.float32(p)) <= p else \
+            np.float64(np.nextafter(np.float32(p), np.float32(0)))
+        hi = np.float64(np.nextafter(np.float32(lo), np.float32(np.inf)))
+        if p - lo == hi - p:
+            fracs.append(f)
+    args = (torch.as_tensor(arena, device=cuda_device), jobs, first_job,
+            torch.as_tensor(np.asarray(fracs, np.float32), device=cuda_device), order, chunks,
+            np.float32(1.0))
+    got, off = port_msa._extend_library(*args)
+    want, want_off = port_msa._extend_library_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and np.array_equal(off, want_off)
 
 
 def _lev_codes(rng, n, L, n_rate=0.06):
@@ -1171,6 +1202,127 @@ def test_lev2_kernel_matches_plain(cuda_device, TI, TJ, L):
     assert torch.equal(got, want) and torch.equal(got_p, want_p)
 
 
+def _umi_rows(rng, n, L, n_rate, lo):
+    """``n`` distinct UMIs of ``lo``-``L`` codes near random centres (a few
+    substitutions and indels, N at ``n_rate``), pad 5, int32."""
+    centres = [rng.integers(0, 4, rng.integers(lo, L + 1)) for _ in range(max(2, n // 8))]
+    seen, rows = set(), []
+    while len(rows) < n:
+        s = list(centres[rng.integers(len(centres))])
+        for _ in range(rng.integers(0, 4)):
+            op, at = rng.integers(3), rng.integers(len(s) + 1)
+            if op == 0 and at < len(s):
+                s[at] = int(rng.integers(4))
+            elif op == 1 and len(s) < L:
+                s.insert(at, int(rng.integers(4)))
+            elif op == 2 and at < len(s) and len(s) > 1:
+                del s[at]
+        s = [4 if rng.random() < n_rate else c for c in s]
+        if tuple(s) not in seen:
+            seen.add(tuple(s))
+            rows.append(s)
+    lengths = np.asarray([len(r) for r in rows], np.int32)
+    codes = np.full((n, L), 5, np.int32)
+    for i, r in enumerate(rows):
+        codes[i, : len(r)] = r
+    return codes, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,limit,tile,lo", [
+    (3000, 30, 2, 512, 26), (2000, 20, 3, 512, 16), (1500, 12, 1, 200, 8), (1200, 40, 4, 512, 30),
+    (800, 64, 2, 256, 60), (600, 90, 3, 512, 80), (400, 20, 16, 128, 1),
+])
+def test_lev2_hits_match_plain(cuda_device, n, L, limit, tile, lo):
+    """Kernel I's thresholded form on each route (the band in registers for
+    rows to 64 positions and half-bands to 15, the scratch route above)
+    against the plain row-block scan on the same card: the same hits in
+    the same order, one launch (two where the hits outgrow the default
+    buffer), the band cells counted; with a buffer of one key the count
+    overflows and one re-run at the exact count gives the same hits."""
+    from sarlacc_tpu_torch.ops import cuda_lev2, levenshtein
+
+    rng = np.random.default_rng(n + L + limit)
+    codes, lengths = _umi_rows(rng, n, L, 0.03, lo)
+    perm = np.argsort(lengths, kind="stable")
+    s_len = lengths[perm]
+    c = torch.as_tensor(codes[perm][:, : int(s_len[-1])].astype(np.int8), device=cuda_device)
+    ln = torch.as_tensor(s_len, device=cuda_device)
+    cells = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    want = levenshtein._rowblock_hits_plain(c, ln, s_len, 2 * limit, limit, tile)
+    before = cuda_lev2.HITS_KERNEL.launches
+    got = levenshtein._rowblock_hits(c, ln, s_len, 2 * limit, limit, tile)
+    # One launch, two where the hits overflow the default buffer (limit 16
+    # on 20-bp rows: every pair is a hit).
+    assert cuda_lev2.HITS_KERNEL.launches == before + 1 + (want.numel() > max(1 << 16, 8 * n))
+    cuda_lev2.lev2_hits(c, ln, s_len, 2 * limit, limit, tile, cells=cells)
+    before = cuda_lev2.HITS_KERNEL.launches
+    again = cuda_lev2.lev2_hits(c, ln, s_len, 2 * limit, limit, tile, cap=1)
+    assert cuda_lev2.HITS_KERNEL.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert want.numel() > n and int(cells) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route_L", [30, 90])
+def test_lev2_hits_split_beyond_the_budget(cuda_device, monkeypatch, route_L):
+    """A memory budget of fewer hits than the scan finds: the thresholded
+    form runs in parts of whole row tiles and returns the plain version's
+    hits, in order, on the host; its cell count is that of one whole run."""
+    from sarlacc_tpu_torch.ops import cuda_lev2, levenshtein
+
+    rng = np.random.default_rng(route_L)
+    codes, lengths = _umi_rows(rng, 1500, route_L, 0.03, route_L - 4)
+    perm = np.argsort(lengths, kind="stable")
+    s_len = lengths[perm]
+    c = torch.as_tensor(codes[perm][:, : int(s_len[-1])].astype(np.int8), device=cuda_device)
+    ln = torch.as_tensor(s_len, device=cuda_device)
+    want = levenshtein._rowblock_hits_plain(c, ln, s_len, 4, 2, 512)
+    whole = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    cuda_lev2.lev2_hits(c, ln, s_len, 4, 2, 512, cells=whole)
+    monkeypatch.setattr(cuda_lev2, "memory_budget", lambda *a: 24 * (want.numel() // 3))
+    cells = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    before = cuda_lev2.HITS_KERNEL.launches
+    got = cuda_lev2.lev2_hits(c, ln, s_len, 4, 2, 512, cells=cells)
+    assert cuda_lev2.HITS_KERNEL.launches - before > 3 and not got.is_cuda
+    assert torch.equal(got, want.cpu()) and int(cells) == int(whole)
+
+
+@pytest.mark.cuda
+def test_rowblock_scan_reads_back_twice(cuda_device, monkeypatch):
+    """``_neighbor_pairs_rowblock`` on the card: no [TI, TJ] distance
+    matrix (kernel I's full-DP forms never launch), no ``torch.nonzero``,
+    two host readbacks (the count and the hits), and the CPU's pairs."""
+    from sarlacc_tpu_torch.ops import cuda_lev2, levenshtein
+
+    rng = np.random.default_rng(5)
+    codes, lengths = _umi_rows(rng, 2500, 30, 0.02, 26)
+    reads = []
+    real_cpu, real_int = torch.Tensor.cpu, torch.Tensor.__int__
+
+    def cpu(self, *a, **kw):
+        reads.append("cpu") if self.is_cuda else None
+        return real_cpu(self, *a, **kw)
+
+    def to_int(self):
+        reads.append("int") if self.is_cuda else None
+        return real_int(self)
+
+    def no_nonzero(*a, **kw):
+        raise AssertionError("torch.nonzero on the scan")
+
+    full = cuda_lev2.LEV2_KERNEL.launches
+    monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+    monkeypatch.setattr(torch.Tensor, "__int__", to_int)
+    monkeypatch.setattr(torch, "nonzero", no_nonzero)
+    gi, gj = levenshtein._neighbor_pairs_rowblock(codes, lengths, 4, 2, 512, cuda_device)
+    monkeypatch.undo()
+    assert reads == ["int", "cpu"] and cuda_lev2.LEV2_KERNEL.launches == full
+    wi, wj = levenshtein._neighbor_pairs_rowblock(codes, lengths, 4, 2, 512, "cpu")
+    assert np.array_equal(gi, wi) and np.array_equal(gj, wj)
+
+
 @pytest.mark.cuda
 def test_plain_scans_never_see_a_card_tensor(cuda_device, monkeypatch):
     """adaptor_align, quality_align, multi_read_align (device library) and
@@ -1181,7 +1333,8 @@ def test_plain_scans_never_see_a_card_tensor(cuda_device, monkeypatch):
     from sarlacc_tpu_torch.ops import backtrack, cuda_backtrack, cuda_extend, cuda_lev2, levenshtein
 
     for owner, name in ((backtrack, "_qmap_walk_plain"), (backtrack, "_string_walk_plain"),
-                        (port_msa, "_extend_chunk_plain"), (levenshtein, "_lev2_scan")):
+                        (port_msa, "_extend_chunk_plain"), (port_msa, "_extend_library_plain"),
+                        (levenshtein, "_lev2_scan"), (levenshtein, "_rowblock_hits_plain")):
         real = getattr(owner, name)
 
         def guard(first, *rest, _real=real, _name=name):
@@ -1192,7 +1345,7 @@ def test_plain_scans_never_see_a_card_tensor(cuda_device, monkeypatch):
         monkeypatch.setattr(owner, name, guard)
     monkeypatch.delenv("SARLACC_HOST_LIB", raising=False)
     kernels = (cuda_backtrack.QMAP_KERNEL, cuda_backtrack.STRING_KERNEL,
-               cuda_extend.EXTEND_KERNEL, cuda_lev2.LEV2_KERNEL)
+               cuda_extend.EXTEND_KERNEL, cuda_lev2.LEV2_KERNEL, cuda_lev2.HITS_KERNEL)
     before = [k.launches for k in kernels]
 
     rng = np.random.default_rng(12)
@@ -1230,7 +1383,7 @@ def test_walk_extend_lev2_kernel_resources(cuda_device):
            **cuda_lev2.lev2_kernel_resources()}
     print({name: (r["registers"], r["spill_bytes"], r["blocks_per_sm"]) for name, r in res.items()})
     assert sorted(res) == sorted(["G:qmap", "G:string", "H:count", "H:write", "H:scan",
-                                  "I:reg32", "I:scratch"])
+                                  "I:reg32", "I:scratch", "I:band_reg", "I:band_scratch"])
     for name, r in res.items():
         assert 0 < r["registers"] <= 255 and r["blocks_per_sm"] >= 1, name
         assert r["spill_bytes"] == 0, (name, r)

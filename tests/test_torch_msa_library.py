@@ -127,9 +127,10 @@ def test_extend_chunk_kernel_matches_jax():
     batch, groups = _group_reads(rng, [5], 90)
     idx = groups[0]
     xs, ys = np.triu_indices(idx.size, k=1)
-    arena, fracs = port_ops_msa.pair_maps_device(
+    arena, fracs, fracs_dev = port_ops_msa.pair_maps_device(
         batch.codes, batch.lengths, idx[xs], idx[ys], 0.0, -1.0, 5.0, 1.0, 20, CPU,
     )
+    np.testing.assert_array_equal(fracs_dev.numpy().astype(np.float64), fracs)
     xz, zy, ws, pid = _chunk_inputs(idx, (arena, fracs))
     CP, SL = xz.shape
     STR = arena.shape[1]
@@ -153,7 +154,7 @@ def test_extend_chunk_kernel_matches_jax():
     table, counts = np.asarray(table).astype(np.int64), np.asarray(counts)
 
     got_counts = torch.zeros(CP + 1, dtype=torch.int64)
-    rows = port_ops_msa._extend_chunk_kernel(
+    rows = port_ops_msa._extend_chunk_plain(
         arena, *(torch.tensor(a) for a in (xz.astype(np.int64), zy.astype(np.int64), ws,
                                            pid.astype(np.int64))),
         got_counts, torch.tensor(w_scale), strc,
@@ -162,6 +163,16 @@ def test_extend_chunk_kernel_matches_jax():
     assert counts[CP - 1] == 0 and counts[-1] == 0  # the pad pair keeps nothing
     want = np.concatenate([table[p * M2 : p * M2 + counts[pid[p]]] for p in range(CP)])
     np.testing.assert_array_equal(rows, want)
+
+    # Kernel H's plain version on its own inputs (the per-job tables and the
+    # float32 identities, one chunk of the group's pairs) gives the same.
+    jobs, first_job, _, _, _ = port_api_msa._library_jobs([idx], [0])
+    P = jobs.shape[0]
+    lib, off = port_ops_msa._extend_library_plain(
+        arena, jobs, first_job, fracs_dev, np.arange(P, dtype=np.int32), [(0, P, SL, strc)],
+        w_scale)
+    np.testing.assert_array_equal(np.diff(off), counts[:P])
+    np.testing.assert_array_equal(lib.numpy(), want)
 
 
 def test_extend_chunk_kernel_matches_jax_on_synthetic_maps():
@@ -191,7 +202,7 @@ def test_extend_chunk_kernel_matches_jax_on_synthetic_maps():
     )
     table, counts = np.asarray(table).astype(np.int64), np.asarray(counts)
     got_counts = torch.zeros(CP + 1, dtype=torch.int64)
-    rows = port_ops_msa._extend_chunk_kernel(
+    rows = port_ops_msa._extend_chunk_plain(
         torch.tensor(arena), *(torch.tensor(a) for a in (xz.astype(np.int64), zy.astype(np.int64),
                                                           ws, pid.astype(np.int64))),
         got_counts, torch.tensor(w_scale), strc,
@@ -281,7 +292,7 @@ def test_device_route_raises_without_fallback(monkeypatch):
     def broken(*a, **kw):
         raise RuntimeError("extension failed")
 
-    monkeypatch.setattr(port_api_msa, "_extend_chunk_kernel", broken)
+    monkeypatch.setattr(port_api_msa, "_extend_library", broken)
     batch = SeqBatch.from_strings(["ACGTACGTAA", "ACGTACGTAC", "ACGAACGTAA"])
     with pytest.raises(RuntimeError, match="extension failed"):
         multi_read_align(batch, device="cpu")

@@ -38,7 +38,9 @@ on its own line:
    Levenshtein DP) at every shape the golden, pipeline, msa_library,
    calibration, mesh and umi phases launched them, recorded as they ran
    and replayed against their plain versions (bit-equal), with G's
-   fetching steps, H's entries (H a whole library build: every chunk's
+   fetching steps in all and by kind (equal to the plain walk's own
+   count, or the run fails) and the round trips of its longest lane,
+   H's entries (H a whole library build: every chunk's
    counting pass, the device scan, one readback, every writing pass) and
    I's DP cells, and I's thresholded form (the row-block scan's hits, in
    order, and its DP cells; a forced overflow re-runs once);
@@ -761,11 +763,13 @@ def scan_rows(torch, cases, dev):
     arguments)`` call against their plain versions (run once a shape, after
     one untimed run a kernel at its first shape; tolerance 0: G's maps or
     emissions, H's library entries and pair offsets, I's distances, its
-    thresholded form's hit pairs in order), with CUDA-event times and the
-    bound.  Bytes: G the 2-byte direction cell of each fetching step
-    (counted by the kernel; each is a distinct entry of the plane) plus the
-    lengths and outputs; H :func:`h_bytes` (a whole library build: every
-    chunk's counting pass, the scan and every writing pass, timed queued
+    thresholded form's hit pairs in order), with CUDA-event times (G's over
+    20 launches queued behind a sleep on the card, since a walk is shorter
+    than its wrapper's host time) and the bound.  Bytes: G the 2-byte
+    direction cell of each fetching step (counted by the kernel, and held
+    equal to the plain walk's count, in all and by kind; each is a distinct
+    entry of the plane) plus the lengths and outputs; H :func:`h_bytes` (a
+    whole library build: every chunk's counting pass, the scan and every writing pass, timed queued
     back to back, the uploads and the readback outside the events; the
     whole build is timed beside it); I its inputs and output once; I's
     thresholded form the codes and lengths once and 8 bytes a hit.
@@ -777,6 +781,7 @@ def scan_rows(torch, cases, dev):
     from sarlacc_tpu_torch.ops import backtrack, cuda_backtrack, cuda_extend, cuda_lev2
     from sarlacc_tpu_torch.ops.levenshtein import _lev2_scan, _rowblock_hits_plain
     from sarlacc_tpu_torch.ops.msa import _extend_library_plain
+    from sarlacc_tpu_torch.tools.timing import queued_ms
 
     res = {**cuda_backtrack.backtrack_kernel_resources(), **cuda_extend.extend_kernel_resources(),
            **cuda_lev2.lev2_kernel_resources()}
@@ -796,19 +801,29 @@ def scan_rows(torch, cases, dev):
             dirs, lengths = args
             kern = cuda_backtrack.qmap_walk if key == "G" else cuda_backtrack.string_walk
             plain = backtrack._qmap_walk_plain if key == "G" else backtrack._string_walk_plain
-            fetches = torch.zeros(1, dtype=torch.int64, device=dev)
-            got = kern(dirs, lengths, fetches=fetches)
+            counters = torch.zeros(len(cuda_backtrack.COUNTS), dtype=torch.int64, device=dev)
+            got = kern(dirs, lengths, fetches=counters)
             want, plain_ms = timed_once(torch, lambda: plain(dirs, lengths))
+            counted = {}
+            plain(dirs, lengths, counts=counted)
             what = "maps" if key == "G" else "emissions"
             rname = "G:qmap" if key == "G" else "G:string"
-            n_fetch = int(fetches)
+            kc = dict(zip(cuda_backtrack.COUNTS, counters.tolist()))
+            if {k: kc[k] for k in counted} != counted:
+                raise AssertionError(f"kernel {key} ({name}): fetching steps {kc} differ from "
+                                     f"the plain walk's {counted}")
+            n_fetch = kc["fetches"]
             R, l1, n_pad = dirs.shape
-            detail = f"R={R} l1={l1} n_pad={n_pad}, {n_fetch} fetching steps"
-            extra = dict(fetches=n_fetch)
+            kinds = ", ".join(f"{k} {kc[k]}" for k in cuda_backtrack.COUNTS[2:])
+            detail = (f"R={R} l1={l1} n_pad={n_pad}, {n_fetch} fetching steps ({kinds}; equal "
+                      f"to the plain walk's), {kc['rounds']} round trips on the longest lane")
+            extra = dict(kc)
             if key == "S":
                 steps = int(got[2].to(torch.int64).sum())
                 detail += f", {steps} steps"
                 extra["steps"] = steps
+            extra.update(shared_bytes=res[rname]["shared_bytes"],
+                         blocks_per_sm=res[rname]["blocks_per_sm"])
             n_bytes = 2 * n_fetch + nbytes(lengths, *got)
             ops = 0
             run = lambda: kern(dirs, lengths)  # noqa: E731
@@ -895,7 +910,10 @@ def scan_rows(torch, cases, dev):
             raise AssertionError(f"kernel {key} ({name}): {what} differ from the plain version")
         err = max((float((x.double() - y.double()).abs().max()) for x, y in zip(got, want)
                    if x.numel()), default=0.0)
-        ms = event_ms(run, 5, dev)
+        if key in "GS":  # shorter than its wrapper's host time: queued behind a sleep
+            ms = queued_ms(run, 20, dev)
+        else:
+            ms = event_ms(run, 5, dev)
         bms, by = bound(n_bytes, ops)
         if bms > ms:
             raise AssertionError(f"kernel {key} ({name}): bound {bms:.4f} ms above the measured "
@@ -2272,7 +2290,9 @@ def main(argv=None) -> int:
         launches, each = path_launches(kern.symbol)
         extra = {k: r[k] for k in ("gcups", "tile", "lanes", "passes", "block_ms", "merge_route",
                                    "entries", "pairs", "chunks", "chain_rows", "fetches",
+                                   "rounds", "up_last", "up_inner", "diag", "left", "other",
                                    "steps", "cells", "hits", "path_cells", "lev2_route",
+                                   "shared_bytes", "blocks_per_sm",
                                    "registers",
                                    "spill_bytes",
                                    "achieved_occupancy") if k in r}

@@ -31,14 +31,33 @@ def qmap_walk(dirs: torch.Tensor, lengths: torch.Tensor):
     return _qmap_walk_plain(dirs, lengths)
 
 
-def _qmap_walk_plain(dirs: torch.Tensor, lengths: torch.Tensor):
+def _kinds(counts, fetching, up, col, R, diag, left, d):
+    """Add one step's fetching steps by kind to ``counts`` (tensors)."""
+    if counts is None:
+        return
+    steps = {"fetches": fetching, "up_last": up & (col == R), "up_inner": up & (col < R),
+             "diag": diag, "left": left, "other": fetching & ~up & (d < 0)}
+    for k, m in steps.items():
+        counts[k] = counts.get(k, 0) + m.sum()
+
+
+def _counted(counts):
+    """``counts``' tensors as ints, in place."""
+    if counts is not None:
+        for k, v in counts.items():
+            counts[k] = int(v)
+
+
+def _qmap_walk_plain(dirs: torch.Tensor, lengths: torch.Tensor, counts: dict | None = None):
     """Kernel G's plain version, one backtrack step an iteration.
 
     Returns (is_match bool [n_pad, R+1], dp_row int32 [n_pad, R+1]), the
     ``fill_map`` mapping (reference_align.cpp:280-305): position 0 is
     (False, 0); diagonal cells record (True, row); left-run cells record
     (False, row+1); up-runs record nothing.  Lanes past ``lengths`` walk
-    trivially from length 0.
+    trivially from length 0.  ``counts``, a dict (measurement only), gains
+    the walk's fetching steps, in all and by kind, under kernel G's names
+    (``cuda_backtrack.COUNTS`` but ``rounds``, which is the kernel's own).
     """
     R, l1, N = dirs.shape
     dev = dirs.device
@@ -66,6 +85,7 @@ def _qmap_walk_plain(dirs: torch.Tensor, lengths: torch.Tensor):
             left_new = fresh & ~up & (d > 0)
             left_cont = active & (rc > 0)
             write = diag | left_new | left_cont
+            _kinds(counts, fresh, up, col, R, diag, left_new, d)
 
             wcol = torch.where(write, col, R + 1)  # R+1 is a scratch bin
             om[narr, wcol] = diag
@@ -75,6 +95,7 @@ def _qmap_walk_plain(dirs: torch.Tensor, lengths: torch.Tensor):
             rc = torch.where(left_new, d - 1, torch.where(left_cont, rc - 1, rc))
             col = torch.where(write, col - 1, col)
         it += _STEPS_PER_CHECK
+    _counted(counts)
     return om[:, : R + 1], orow[:, : R + 1]
 
 
@@ -87,7 +108,7 @@ def string_walk(dirs: torch.Tensor, lengths: torch.Tensor):
     return _string_walk_plain(dirs, lengths)
 
 
-def _string_walk_plain(dirs: torch.Tensor, lengths: torch.Tensor):
+def _string_walk_plain(dirs: torch.Tensor, lengths: torch.Tensor, counts: dict | None = None):
     """Kernel G's plain version, one backtrack step an iteration.
 
     The template backtrack of reference_align.cpp:353-389, replayed for
@@ -98,7 +119,8 @@ def _string_walk_plain(dirs: torch.Tensor, lengths: torch.Tensor):
     are int32 (the JAX package's int16 holds the same values below 32767).
 
     Returns (a_pos int32 [n_pad, T], b_pos int32 [n_pad, T], ncols int32
-    [n_pad]); lanes past ``lengths`` walk from length 0.
+    [n_pad]); lanes past ``lengths`` walk from length 0.  ``counts`` as
+    :func:`_qmap_walk_plain`'s.
     """
     R, l1, N = dirs.shape
     dev = dirs.device
@@ -127,6 +149,7 @@ def _string_walk_plain(dirs: torch.Tensor, lengths: torch.Tensor):
             see_up = fresh & ~tailq & (row > 0) & (d < 0)
             diag = fresh & ~tailq & ~see_up & (d == 0)
             newl = fresh & ~tailq & ~see_up & (d > 0)
+            _kinds(counts, fresh & ~tailq, see_up, col, R, diag, newl, d)
 
             uc = torch.where(see_up, -d, uc)
             rc = torch.where(newl, d, rc)
@@ -144,6 +167,7 @@ def _string_walk_plain(dirs: torch.Tensor, lengths: torch.Tensor):
             rc = rc - emit_left.to(torch.int64)
             t = t + active.to(torch.int64)
         it += _STEPS_PER_CHECK
+    _counted(counts)
     return oa[:, :T], ob[:, :T], t.to(torch.int32)
 
 

@@ -1,6 +1,6 @@
-"""Kernels A, B, E and F of several checkouts of the port, timed in turns on one card.
+"""Kernels A, B, E, F and G of several checkouts of the port, timed in turns on one card.
 
-    python -m sarlacc_tpu_torch.tools.kernel_turns [--shapes FILE] [--kernels ABEF] ROOT [ROOT ...]
+    python -m sarlacc_tpu_torch.tools.kernel_turns [--shapes FILE] [--kernels ABEFGS] ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a ``sarlacc_tpu_torch`` package (this
 checkout is ``.``; another is, say, a ``git archive`` of the parent
@@ -23,9 +23,18 @@ same inputs, all made from seeds or read from FILE:
   each merge wave in FILE's ``"E"`` (every wave of the pipeline's warm-up
   pass, with the library entries it reads): the host tables, the cost
   build and the kernel, whatever the root does for them, timed by the host
-  clock around each call and a synchronise.
+  clock around each call and a synchronise;
+* kernel G's qmap walk (``G``) on the directions the root's kernel A gives
+  at adaptor_align's stacked ends against each adaptor (fitting), and its
+  string walk (``S``) on those at quality_align's launch (global); kernel
+  A is bit-identical across the roots.
 
-A, B and F are timed with CUDA events (5 calls after a warm-up).  Each
+A, B and F are timed with CUDA events (5 calls after a warm-up).  G's
+walks are shorter than their wrappers' host time, so they are timed with
+CUDA events over 5 calls queued behind a sleep on the card after a warm-up
+(``tools/timing.py::queued_ms``).  Where a root's
+kernel G counts by kind (``cuda_backtrack.COUNTS``), its counters at each
+G case are kept too.  Each
 root's outputs are checked against its own plain versions once a shape
 (bit for bit; E against the CPU route of ``merge_wave_from_library`` on
 waves up to 2^27 band cells); the runs' outputs must also agree with each
@@ -57,7 +66,9 @@ def _inputs(torch, st, dev, shapes, kernels):
     from sarlacc_tpu_torch.api.align_internal import prepare_adaptor
     from sarlacc_tpu_torch.core.encode import SeqBatch
     from sarlacc_tpu_torch.ops.align import prepare_reads
-    from sarlacc_tpu_torch.ops.cuda_align import build_cost_planes, encode_mask, plane_dims
+    from sarlacc_tpu_torch.ops.cuda_align import (
+        build_cost_planes, encode_mask, fit_dirs, plane_dims,
+    )
 
     fd, fp = tempfile.mkstemp(suffix=".fastq")
     os.close(fd)
@@ -81,6 +92,16 @@ def _inputs(torch, st, dev, shapes, kernels):
         l1, n_pad = plane_dims(*codes.shape)
         planes = build_cost_planes(codes, qidx, ad.match_tab, ad.mismatch_tab, l1, n_pad)
         cases[name] = ("A", (ad.modes, encode_mask(ad.matched), 5.0, 1.0, *planes, local))
+    for name, ref, reads, local in (
+        ("G:adaptor1", ADAPTOR1, stacked, True), ("G:adaptor2", ADAPTOR2, stacked, True),
+        ("S:quality_align", batch.seq_strings()[0][50:550], batch.take(np.arange(1, 301)), False),
+    ):
+        if name[0] in kernels:
+            ad = prepare_adaptor(ref, device=dev)
+            codes, qidx, lengths = prepare_reads(reads, ad.tables, device=dev)
+            _, dirs, _ = fit_dirs(codes, qidx, lengths, ad.modes, ad.matched, ad.match_tab,
+                                  ad.mismatch_tab, 5.0, 1.0, local=local)
+            cases[name] = (name[0], (dirs, lengths))
 
     # chip_smoke.py's bucket: 4096 length-sorted neighbours of 513-1024 bp.
     rows, W, bw = 1024, 256, 100
@@ -127,7 +148,19 @@ def _checksum(torch, t, chunk: int = 1 << 26) -> float:
                for k in range(0, flat.numel(), chunk))
 
 
-def run_root(root: str, shapes=None, kernels="ABEF", reps: int = 5) -> dict:
+def _own_timing():
+    """This file's ``timing`` module (not the root's, which may predate
+    ``queued_ms``), so that every root is timed alike."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "timing.py")
+    spec = importlib.util.spec_from_file_location("kernel_turns_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_root(root: str, shapes=None, kernels="ABEFGS", reps: int = 5) -> dict:
     """In this process: import ``root``'s package, time its kernels at every
     case.  Returns {"root", "device", "ms": {case: ms}, "digest": {case:
     output checksums}}."""
@@ -137,6 +170,7 @@ def run_root(root: str, shapes=None, kernels="ABEF", reps: int = 5) -> dict:
     import torch
 
     import sarlacc_tpu_torch as st
+    from sarlacc_tpu_torch.ops import backtrack, cuda_backtrack
     from sarlacc_tpu_torch.ops import msa as ops_msa
     from sarlacc_tpu_torch.ops.align import dp_align
     from sarlacc_tpu_torch.ops.cuda_align import dir_kernel
@@ -156,7 +190,10 @@ def run_root(root: str, shapes=None, kernels="ABEF", reps: int = 5) -> dict:
     def wave_plain(lib, descs, rows, W):
         return (ops_msa.merge_wave_from_library(lib, descs, rows, W),)
 
-    out = {"root": root, "device": torch.cuda.get_device_name(0), "ms": {}, "digest": {}}
+    queued_ms = _own_timing().queued_ms
+
+    out = {"root": root, "device": torch.cuda.get_device_name(0), "ms": {}, "digest": {},
+           "counts": {}}
     for name, (which, args) in _inputs(torch, st, dev, shapes, kernels).items():
         if which == "F":  # kernel F on this bucket's directions
             _, dirs = pair_kernel(*args)
@@ -170,9 +207,12 @@ def run_root(root: str, shapes=None, kernels="ABEF", reps: int = 5) -> dict:
             if len(descs) * rows * W <= 2**27:
                 plain = lambda t=tab, i=w_inv, d=descs, r=rows, w=W: wave_plain((t, i), d, r, w)
         else:
-            kernel = {"A": dir_kernel, "B": pair_kernel}[which]
+            kernel = {"A": dir_kernel, "B": pair_kernel, "G": cuda_backtrack.qmap_walk,
+                      "S": cuda_backtrack.string_walk}[which]
             fn = lambda k=kernel, a=args: k(*a)
-            plain = lambda a=args, p={"A": dp_align, "B": banded_pair_plain}[which]: p(*a)
+            plain = lambda a=args, p={"A": dp_align, "B": banded_pair_plain,
+                                      "G": backtrack._qmap_walk_plain,
+                                      "S": backtrack._string_walk_plain}[which]: p(*a)
         got = fn()
         if plain is not None:
             want = plain()
@@ -182,6 +222,10 @@ def run_root(root: str, shapes=None, kernels="ABEF", reps: int = 5) -> dict:
             del want
         out["digest"][name] = [_checksum(torch, g) for g in got]
         del got
+        if which in "GS" and hasattr(cuda_backtrack, "COUNTS"):
+            k = torch.zeros(len(cuda_backtrack.COUNTS), dtype=torch.int64, device=dev)
+            kernel(*args, fetches=k)
+            out["counts"][name] = dict(zip(cuda_backtrack.COUNTS, k.tolist()))
         fn()
         torch.cuda.synchronize()
         if which == "E":
@@ -190,6 +234,9 @@ def run_root(root: str, shapes=None, kernels="ABEF", reps: int = 5) -> dict:
                 fn()
                 torch.cuda.synchronize()
             out["ms"][name] = (time.perf_counter() - t0) * 1e3 / reps
+            continue
+        if which in "GS":
+            out["ms"][name] = queued_ms(fn, reps, dev)
             continue
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -207,7 +254,7 @@ def main(argv=None) -> int:
         _, root, shapes, kernels = argv
         print(json.dumps(run_root(root, shapes or None, kernels)), flush=True)
         return 0
-    shapes, kernels = "", "ABEF"
+    shapes, kernels = "", "ABEFGS"
     while argv[:1] in (["--shapes"], ["--kernels"]):
         if argv[0] == "--shapes":
             shapes = os.path.abspath(argv[1])
@@ -232,7 +279,8 @@ def main(argv=None) -> int:
         if run["digest"] != runs[0]["digest"]:
             raise AssertionError(f"{run['root']} computes other outputs than {runs[0]['root']}")
     print(json.dumps({"turns": [r["root"] for r in runs],
-                      "ms": {n: [r["ms"][n] for r in runs] for n in runs[0]["ms"]}}))
+                      "ms": {n: [r["ms"][n] for r in runs] for n in runs[0]["ms"]},
+                      "counts": {r["root"]: r["counts"] for r in runs if r["counts"]}}))
     return 0
 
 

@@ -14,7 +14,7 @@ import time
 
 import torch
 
-__all__ = ["device_label", "event_ms", "host_s", "sync"]
+__all__ = ["device_label", "event_ms", "host_s", "queued_ms", "sync"]
 
 
 def sync(dev: torch.device) -> None:
@@ -40,6 +40,30 @@ def event_ms(fn, reps: int, dev: torch.device, warmup: bool = True) -> float:
     end.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int, dev: torch.device) -> float:
+    """Mean CUDA-event milliseconds per call of ``fn`` over ``reps`` calls
+    queued behind a sleep on the card, after a warm-up call: the host
+    enqueues every call while the card sleeps, so a kernel shorter than its
+    wrapper's host time is timed back to back, not at the host's pace.
+    ``fn`` must not synchronise; the sleep grows until the host got ahead
+    (the start event still pending when the last call is queued)."""
+    fn()
+    sync(dev)
+    for cycles in (1 << 21, 1 << 23, 1 << 25, 1 << 27):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize(dev)
+        if ahead:
+            return start.elapsed_time(end) / reps
+    raise RuntimeError("the host never got ahead of the card: does fn synchronise?")
 
 
 def host_s(fn, dev: torch.device):

@@ -1036,19 +1036,30 @@ def _walk_plane(device, ref, n, maxl, local, seed):
 
 
 def _hold_walks(dirs, lengths):
-    """Kernel G's two walks against the plain versions on the same card."""
+    """Kernel G's two walks against the plain versions on the same card:
+    outputs, and the kernel's fetching steps in all and by kind against the
+    plain walks' count.  The allocator's free blocks are filled with 0xA5
+    first, so a cell the kernel leaves unwritten shows."""
     from sarlacc_tpu_torch.ops import backtrack, cuda_backtrack
 
+    for size in [64 << 20] + [1 << 20] * 32:  # the large and the small pool
+        torch.empty(size, dtype=torch.uint8, device=dirs.device).fill_(0xA5)
     before = (cuda_backtrack.QMAP_KERNEL.launches, cuda_backtrack.STRING_KERNEL.launches)
-    got_q = cuda_backtrack.qmap_walk(dirs, lengths)
-    got_s = cuda_backtrack.string_walk(dirs, lengths)
+    kq = torch.zeros(len(cuda_backtrack.COUNTS), dtype=torch.int64, device=dirs.device)
+    ks = torch.zeros_like(kq)
+    got_q = cuda_backtrack.qmap_walk(dirs, lengths, fetches=kq)
+    got_s = cuda_backtrack.string_walk(dirs, lengths, fetches=ks)
     assert (cuda_backtrack.QMAP_KERNEL.launches, cuda_backtrack.STRING_KERNEL.launches) == \
         (before[0] + 1, before[1] + 1)
-    want_q = backtrack._qmap_walk_plain(dirs, lengths)
-    want_s = backtrack._string_walk_plain(dirs, lengths)
+    pq, ps = {}, {}
+    want_q = backtrack._qmap_walk_plain(dirs, lengths, counts=pq)
+    want_s = backtrack._string_walk_plain(dirs, lengths, counts=ps)
     torch.cuda.synchronize()
     for got, want in zip(got_q + got_s, want_q + want_s):
         assert got.dtype == want.dtype and torch.equal(got, want)
+    for k, plain in ((kq, pq), (ks, ps)):
+        got = dict(zip(cuda_backtrack.COUNTS, k.tolist()))
+        assert {n: got[n] for n in plain} == plain, (got, plain)
     return got_s[2]
 
 
@@ -1081,6 +1092,20 @@ def test_backtrack_walks_on_malformed_planes(cuda_device, R, l1, n_pad, n):
     lengths[: min(n, 3)] = 0
     ncols = _hold_walks(dirs, torch.as_tensor(lengths, device=cuda_device))
     assert int(ncols.max()) == -(-(R + l1 + 9) // 8) * 8 or n == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["climb", "runs", "clamped", "clamped_R1", "all_up"])
+def test_backtrack_walks_on_adversarial_planes(cuda_device, kind):
+    """The planes that hold the schedule's transliteration on the CPU
+    (``tests/torch_walk_planes.py``: slab-crossing climbs, diagonal runs
+    of 7-9 cells, clamped indices, a climb capped inside the slab phase):
+    kernel G against the plain walks, counters included."""
+    import torch_walk_planes as walk_planes
+
+    dirs, lengths = walk_planes.adversarial_plane(kind)
+    _hold_walks(torch.as_tensor(dirs, device=cuda_device),
+                torch.as_tensor(lengths, device=cuda_device))
 
 
 def _extend_build(rng, sizes, STR, positions, identity=False):

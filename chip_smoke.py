@@ -3,9 +3,9 @@
     python3 chip_smoke.py [--save-shapes FILE]
 
 (``--save-shapes`` keeps the arguments of each kernel-B launch shape of the
-pipeline's warm-up pass and each of its merge waves, with the library
-entries it reads, in FILE, for ``python -m
-sarlacc_tpu_torch.tools.kernel_turns``.)  Phases, each printing its result
+pipeline's warm-up pass and of each (rows, W) of the long_reads phase's,
+and each merge wave of both, with the library entries it reads, in FILE,
+for ``python -m sarlacc_tpu_torch.tools.kernel_turns``.)  Phases, each printing its result
 on its own line:
 
 1. environment: torch / CUDA / nvcc versions, card name and power limit;
@@ -19,9 +19,11 @@ on its own line:
    (theoretical, and achieved from block stamps); kernel B (banded pair DP)
    at a 4096 x 1024 x 256 bucket and, after phase 5, at each distinct
    (P, rows, W) the pipeline's warm-up pass launched, on its own route and
-   the block route beside it, and on its wide route at W = 8192 (64
+   the block route beside it, and on its wide route (a cluster of W / 8192
+   blocks a pair, one block at W 8192) at W = 8192 (64
    pairs, reads of 4.0-4.6 kb against 128-256 bp) and W = 65 536 (4
-   pairs, 31-32 kb reads, bandwidth 16 500); kernel C (score-only DP) at
+   pairs, 31-32 kb reads, bandwidth 16 500), with its cluster size and the
+   clusters the card holds at once; kernel C (score-only DP) at
    the demux shape of bench.py:207-240 and at calibration's (19 926 stacked ends); kernel D
    (multi-segment score-only DP) at the demux shapes, with 24-bp barcodes
    (so each of its three tile widths runs), at tune_alignment's
@@ -69,6 +71,19 @@ on its own line:
    quantum), then the device route on 20 groups of 2-10 reads on the card
    against ``device="cpu"`` with the segment budget pinned (table,
    identities and strings bit-equal);
+   long_reads: ``mock_reads`` of 48 molecules of 4.3-5 kb inserts, 6-9
+   reads each (seed 11, reads on their molecule's strand), 30% of each
+   molecule's reads (at least one) cut to their first 150-400 bases, the
+   molecules as groups: ``multi_read_align`` at the default bandwidth on
+   the route ``_device_lib_ok`` gives (a warm-up pass recording kernels B,
+   E, F and H one call a (rows, W), a timed pass), ``consensus_read_seq``;
+   every full x cut pair must bucket to W 8192 and kernel B's wide route
+   run at 8192 rows and at <= 512; two groups cut to one full read and the
+   first cut read after it (an 8192-row wide pair) on the card against
+   ``device="cpu"`` (alignments and consensus); then every recorded call
+   replayed against its plain version (E's on runs of merges of at most
+   2^31 band cells, every merge of the call), with stage seconds and peak
+   memory;
 6. golden demux: tests/golden/barcode_demux.json through adaptor_align ->
    barcode_align -> get_barcode_thresholds on the card;
 7. demux: bench.py::bench_demux's pass (100 000 random 250-bp ends against
@@ -396,37 +411,12 @@ def phase_kernels(torch, st, batch, dev, max_pairs=4096):
     # The wide route: 128-256-bp reads against 4.0-4.6 kb ones at the
     # default bandwidth (W = 8192), and against 31-32 kb ones at bandwidth
     # 16 500 (W = 65 536, the widest bucket a legal input makes).
+    from sarlacc_tpu_torch.tools.kernel_turns import wide_pair_args
+
     cases["wide@8192"] = wide_pair_args(torch, dev, 64, 256, (4000, 4600), 100, 8192, 5)
     cases["wide@65536"] = wide_pair_args(torch, dev, 4, 256, (31000, 32000), 16500, 65536, 6)
     rows_out += pair_rows(torch, cases, dev)
     return rows_out
-
-
-def wide_pair_args(torch, dev, P, rows, lb_range, bw, W, seed):
-    """banded_pair arguments for P pairs whose A reads (``rows`` // 2 to
-    ``rows`` bases) sit, 80% kept, inside B reads of ``lb_range`` bases:
-    bands of |lb - la| + 2 ``bw`` + 1 cells, within ``W``."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    LB = lb_range[1]
-    ca = rng.integers(0, 4, (P, rows)).astype(np.int8)
-    cb = rng.integers(0, 4, (P, LB)).astype(np.int8)
-    for p, off in enumerate(rng.integers(0, lb_range[0] - rows, P)):
-        keep = rng.random(rows) < 0.8
-        cb[p, off : off + rows] = np.where(keep, ca[p], cb[p, off : off + rows])
-    la = rng.integers(rows // 2, rows + 1, P)
-    lb = rng.integers(lb_range[0], LB + 1, P)
-    lo = np.minimum(0, lb - la) - bw
-    hi = np.maximum(0, lb - la) + bw
-    if int((hi - lo).max()) + 1 > W:
-        raise AssertionError(f"a band of {int((hi - lo).max()) + 1} cells exceeds W = {W}")
-
-    def t(a, dtype=None):
-        return torch.as_tensor(np.asarray(a, dtype), device=dev)
-
-    return (t(ca), t(cb), t(la, np.int32), t(lb, np.int32), t(lo, np.int32),
-            t(hi - lo, np.int32), 0.0, -1.0, 5.0, 1.0, rows, W)
 
 
 #: Each kernel's wrapper where the entry points reach it: key -> (module,
@@ -629,39 +619,74 @@ def pair_rows(torch, cases, dev):
         cells = P * rows * W
         bms, by = bound(nbytes(*bargs[:6], sk, dk), cells * OPS_PER_CELL["B"])
         r = res[f"B:{route}@{W}"]
+        extra = dict(block_ms=block_ms) if route == "warp" else {}
+        what = f"{route} route"
+        if route == "wide":
+            extra = dict(cluster=r["cluster"], active_clusters=r["active_clusters"],
+                         shared_bytes=r["shared_bytes"])
+            what += (f", clusters of {r['cluster']} blocks of {r['threads']} threads, "
+                     f"{r['active_clusters']} resident at once")
         log(f"[kernels] B {name}: P={P} rows={rows} W={W}: dirs equal, max|dscore|={err}, "
-            f"kernel {ms:.3f} ms = {cells / ms / 1e6:.1f} GCUPS ({route} route"
+            f"kernel {ms:.3f} ms = {cells / ms / 1e6:.1f} GCUPS ({what}"
             + (f"; block route {block_ms:.3f} ms" if block_ms is not None else "")
-            + f"), plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, {100 * bms / ms:.1f}%); "
-            f"{r['registers']} registers, {r['spill_bytes']} B spilled, {r['blocks_per_sm']} "
-            f"blocks of {r['threads']} an SM")
+            + f"), plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, {100 * bms / ms:.2f}%); "
+            f"{r['registers']} registers, {r['spill_bytes']} B spilled, {r['shared_bytes']} B "
+            f"shared, {r['blocks_per_sm']} blocks of {r['threads']} an SM")
         out.append(dict(key="B", name=name, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                        bound_by=by, gcups=cells / ms / 1e6, route=route, block_ms=block_ms,
-                        registers=r["registers"], spill_bytes=r["spill_bytes"]))
+                        bound_by=by, gcups=cells / ms / 1e6, route=route, share=bms / ms,
+                        registers=r["registers"], spill_bytes=r["spill_bytes"], **extra))
         del sk, dk
     return out
+
+
+#: Band cells of one run of kernel E's plain replay at most (8 GiB of
+#: float32 cost plane, the pipeline's largest wave whole): a call past it
+#: (the long-read waves) is replayed a run of merges at a time, each run's
+#: entries a slice of the call's (sorted by merge, then row).
+E_PLAIN_CELLS = 1 << 31
+
+
+def merge_entries_plain_runs(torch, args, q):
+    """Kernel E's plain version on the call ``args`` (``merge_dp_walk``'s
+    arguments), ``q`` merges at a time: merges are independent columns, so
+    each run takes its slice of the bands and its entries with the row
+    pointers rebased.  Returns jmat int32 [rows, Pp]."""
+    from sarlacc_tpu_torch.ops.msa import _merge_entries_plain
+
+    cols, w, rowptr, la, lb, lo, kmax, rows, W = args
+    runs = []
+    for m0 in range(0, la.shape[0], q):
+        m1 = min(m0 + q, la.shape[0])
+        ptr = rowptr[m0 * rows : m1 * rows + 1]
+        base = int(ptr[0])
+        runs.append(_merge_entries_plain(cols[base:], w[base:], ptr - base, la[m0:m1],
+                                         lb[m0:m1], lo[m0:m1], kmax[m0:m1], rows, W))
+    return torch.cat(runs, dim=1)
 
 
 def walk_rows(torch, cases, dev):
     """Kernels E and F at each recorded ``name -> (key, arguments)`` call
     against their plain versions (run once a shape; jmat and identities
     bit-equal, tolerance 0; E's is ``_merge_entries_plain``: the blank cost
-    planes, the entries added in order, the plain DP and walk), with
+    planes, the entries added in order, the plain DP and walk, on runs of
+    merges of at most :data:`E_PLAIN_CELLS` band cells, against the
+    kernel's jmat), with
     CUDA-event times, the bound and the longest chain of dependent row
     steps: for E the DP's live rows then the walk's, for F the rows one
     pair walks."""
     from sarlacc_tpu_torch.ops import cuda_walk
-    from sarlacc_tpu_torch.ops.msa import _merge_entries_plain, _pair_ident_kernel, _pair_walk_kernel
+    from sarlacc_tpu_torch.ops.msa import _pair_ident_kernel, _pair_walk_kernel
 
     widths = sorted({int(a[8]) for k, a in cases.values() if k == "E"})
     res = cuda_walk.walk_kernel_resources(widths or (256,))
     out = []
     for name, (key, args) in cases.items():
         if key == "E":
-            cols, w, rowptr, la, lb, lo, kmax, rows, W = args
+            _, _, rowptr, la, lb, lo, kmax, rows, W = args
             Pp = la.shape[0]
             jm = cuda_walk.merge_dp_walk(*args)
-            want, plain_ms = timed_once(torch, lambda: _merge_entries_plain(*args))
+            q = max(1, E_PLAIN_CELLS // (rows * W))
+            want, plain_ms = timed_once(torch, lambda: merge_entries_plain_runs(torch, args, q))
             torch.cuda.synchronize()
             if not torch.equal(jm, want):
                 raise AssertionError(f"kernel E ({name}): jmat differs from the plain version in "
@@ -679,7 +704,8 @@ def walk_rows(torch, cases, dev):
             route = cuda_walk.merge_route(W)
             r = res[f"E:{route}@{W}"]
             detail = (f"Pp={Pp} rows={rows} W={W} ({route} route), {live} live cells, {kept} "
-                      f"entries: jmat equal, kernel {ms:.3f} ms = {live / ms / 1e6:.1f} GCUPS")
+                      f"entries: jmat equal (plain in {-(-Pp // q)} runs of at most {q} "
+                      f"merges), kernel {ms:.3f} ms = {live / ms / 1e6:.1f} GCUPS")
             extra = dict(merge_route=route, gcups=live / ms / 1e6, entries=kept)
         else:
             dirs, la, lb, lo, ca, cb = args
@@ -1312,12 +1338,12 @@ def step_report(totals) -> str:
     )
 
 
-def record_waves(torch, keep=False):
+def record_waves(torch, keep=False, path="pipeline"):
     """Wrap ``api/msa.py``'s ``merge_wave_from_library``: each wave's peak
     allocated memory (the peak counter reset before it), and with ``keep``
     a host copy of every wave, its library cut down to the entries the wave
-    reads (for ``tools/kernel_turns.py``).  Returns (stats, {name: (lib,
-    descs, rows, W)}, undo)."""
+    reads (for ``tools/kernel_turns.py``), named ``path:E:PxRxW``.  Returns
+    (stats, {name: (lib, descs, rows, W)}, undo)."""
     import numpy as np
 
     from sarlacc_tpu_torch.api import msa as api_msa
@@ -1347,7 +1373,7 @@ def record_waves(torch, keep=False):
                     segs.append((at, length, aoff, boff, swap))
                     at += length
                 cut.append({**d, "segments": segs})
-            kept[f"E:P{P}xR{rows}xW{W}"] = ((torch.cat(parts), w_inv), cut, rows, W)
+            kept[f"{path}:E:P{P}xR{rows}xW{W}"] = ((torch.cat(parts), w_inv), cut, rows, W)
         return out
 
     api_msa.merge_wave_from_library = recording
@@ -1571,6 +1597,161 @@ def phase_msa_library(torch, st, reads, filt, kernels, dev, n_slice=20):
         f"segment budget pinned at 1 GiB); comparison {time.perf_counter() - t0:.1f} s; "
         f"launches {counts}; kernel-H shapes {sorted(recorded)}")
     return counts, replay_rows(torch, recorded, dev)
+
+
+def long_reads_batch(st, seed=11, cut_share=0.3, cut_range=(150, 400), nmolecules=48):
+    """The long-read workload: ``mock_reads`` of 48 molecules of 4.3-5 kb
+    inserts, 6-9 reads each (seed 11, the bench's adaptors, every read on
+    its molecule's strand, as ``realize_reads`` orients them), and in each
+    molecule 30% of its reads (at least one) cut to their first 150-400
+    bases (a numpy generator seeded 11): truncated cDNA reads, which keep
+    the UMI end.  Returns (batch, groups: each molecule's reads, cut: bool
+    [n])."""
+    import numpy as np
+
+    from sarlacc_tpu_torch.core.encode import SeqBatch
+
+    full = mock_batch(st, ADAPTOR1_BENCH, nmolecules=nmolecules, nreads_range=(6, 10),
+                      seqlen_range=(4300, 5000), seed=seed, flip_strands=False)
+    rng = np.random.default_rng(seed)
+    mol = np.array([int(n.split(":")[0].rsplit("_", 1)[1]) for n in full.names])
+    seqs, quals = full.seq_strings(), full.qual_strings()
+    cut = np.zeros(len(seqs), bool)
+    groups = []
+    for m in np.unique(mol):
+        idx = np.flatnonzero(mol == m)
+        groups.append([int(i) for i in idx])
+        for i in rng.choice(idx, max(1, int(round(cut_share * idx.size))), replace=False):
+            keep = int(rng.integers(cut_range[0], cut_range[1] + 1))
+            seqs[i], quals[i] = seqs[i][:keep], quals[i][:keep]
+            cut[i] = True
+    return SeqBatch.from_strings(seqs, quals, full.names), groups, cut
+
+
+def phase_long_reads(torch, st, kernels, dev, keep_waves=False, n_slice=2):
+    """``multi_read_align`` and ``consensus_read_seq`` on the long-read
+    workload (:func:`long_reads_batch`) at the default bandwidth, on the
+    library route ``_device_lib_ok`` gives it: a warm-up pass that records
+    kernels B, E, F and H one call a (rows, W) (H a build) and the merge
+    waves, a timed pass, the consensus; every full x cut pair must bucket
+    to W 8192, and kernel B's wide route must run at 8192 rows (the long
+    read as A) and at 512 rows or fewer (the cut read as A).  Then
+    ``n_slice`` groups, each cut to its first full read and the first cut
+    read after it (one 8192-row pair on the wide route), on the card
+    against ``device="cpu"`` with the segment budget pinned (alignments and
+    consensus byte for byte).  The recorded calls are replayed against
+    their plain versions after the phase.  Returns (launch counts, the
+    replays' rows, the recorded B calls on the host, the kept waves)."""
+    import numpy as np
+
+    import sarlacc_tpu_torch.api.msa as msa
+    from sarlacc_tpu_torch.ops.cuda_msa import BLOCK_MAX_WIDTH
+    from sarlacc_tpu_torch.ops.msa import _bkt_arr
+
+    t_phase = t0 = time.perf_counter()
+    batch, groups, cut = long_reads_batch(st)
+    make_s = time.perf_counter() - t0
+    lens = batch.lengths.astype(np.int64)
+    by_group = [np.asarray(g, np.int64) for g in groups]
+    pairs = np.concatenate([np.stack([g[x], g[y]]) for g in by_group
+                            for x, y in [np.triu_indices(g.size, 1)]], axis=1)
+    la, lb = lens[pairs[0]], lens[pairs[1]]  # pairs x < y, as api/msa.py forms them
+    W = _bkt_arr(np.abs(lb - la) + 2 * 100 + 1, 64)
+    rows = _bkt_arr(np.maximum(la, 1), 64)
+    mixed = cut[pairs[0]] != cut[pairs[1]]
+    if not (W[mixed] == 8192).all():
+        raise AssertionError(f"long_reads: full x cut pairs bucket to W {sorted(set(W[mixed]))}")
+    wide = W > BLOCK_MAX_WIDTH
+    device_lib = msa._device_lib_ok(lens, by_group, list(range(len(groups))), dev)
+    log(f"[long_reads] {len(batch)} reads ({int(cut.sum())} cut to 150-400 bp, the rest "
+        f"{int(lens[~cut].min())}-{int(lens[~cut].max())} bp) in {len(groups)} groups "
+        f"(made in {make_s:.1f} s): {pairs.shape[1]} pairs, {int(wide.sum())} on kernel B's wide "
+        f"route ({int((wide & (rows == 8192)).sum())} at 8192 rows, "
+        f"{int((wide & (rows <= 512)).sum())} at <= 512); library route "
+        f"{'device' if device_lib else 'host'} (_device_lib_ok)")
+
+    reset(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    recorded, unrecord = record_calls(torch, "long_reads", "BEFH", per_width=True)
+    wstats, waves, unwave = record_waves(torch, keep_waves, "long_reads")
+    try:
+        t0 = time.perf_counter()
+        st.multi_read_align(batch, groups=groups, device=dev)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    finally:
+        unwave()
+        unrecord()
+    shapes = {tuple(int(x) for x in (a[10], a[11])) for n, (k, a) in recorded.items() if k == "B"}
+    if not any(r == 8192 and w == 8192 for r, w in shapes) or not any(
+            r <= 512 and w == 8192 for r, w in shapes):
+        raise AssertionError(f"long_reads: kernel B's (rows, W) {sorted(shapes)} lack the wide "
+                             f"route at 8192 rows or at <= 512 rows")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aligned = st.multi_read_align(batch, groups=groups, device=dev)
+    torch.cuda.synchronize()
+    msa_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cons = st.consensus_read_seq(aligned, device=dev)
+    torch.cuda.synchronize()
+    cons_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = read_counts(kernels)
+    seqs = cons.seq_strings()
+    if len(seqs) != len(groups) or any(len({len(a) for a in al}) != 1
+                                       for al in aligned["alignments"]):
+        raise AssertionError("long_reads: ragged or missing alignments")
+    short = [len(s) for s in seqs if len(s) < 4000]
+    if short:
+        raise AssertionError(f"long_reads: consensus reads under 4 kb: {short}")
+    log(f"[long_reads] warm-up pass {warm_s:.3f} s, timed multi_read_align {msa_s:.3f} s "
+        f"({len(batch) / msa_s:.1f} reads/s), consensus_read_seq {cons_s:.3f} s "
+        f"({len(seqs)} reads of {min(map(len, seqs))}-{max(map(len, seqs))} bp); peak "
+        f"allocated {peak:.2f} GiB (the merge waves' {wstats['peak'] / 2**30:.2f} GiB, "
+        f"{wstats['waves']} waves, the largest {wstats['largest']}); launches {counts}; "
+        f"kernel B, E, F and H shapes {sorted(recorded)}")
+
+    # The card against the CPU: each slice group one full read and the first
+    # cut read after it, so the pair runs 8192 rows on the wide route.
+    sl = []
+    for g in by_group:
+        full = [i for i in g if not cut[i]]
+        after = [i for i in g if cut[i] and full and i > full[0]]
+        if after and len(sl) < n_slice:
+            sl.append([int(full[0]), int(after[0])])
+    if len(sl) < n_slice:
+        raise AssertionError(f"long_reads: only {len(sl)} groups hold a full read before a cut one")
+    budget = msa._segment_lib_budget
+    msa._segment_lib_budget = lambda device: 1 << 30
+    try:
+        t0 = time.perf_counter()
+        card = st.multi_read_align(batch, groups=sl, device=dev)
+        card_cons = st.consensus_read_seq(card, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = st.multi_read_align(batch, groups=sl, device="cpu")
+        cpu_cons = st.consensus_read_seq(on_cpu, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        msa._segment_lib_budget = budget
+    if card["alignments"] != on_cpu["alignments"] or card["qualities"] != on_cpu["qualities"]:
+        raise AssertionError("long_reads: alignments differ between the card and the CPU")
+    if (card_cons.seq_strings() != cpu_cons.seq_strings()
+            or card_cons.qual_strings() != cpu_cons.qual_strings()):
+        raise AssertionError("long_reads: consensus differs between the card and the CPU")
+    counts = read_counts(kernels)
+    log(f"[long_reads] {len(sl)} groups {sl} ({[int(lens[i]) for g in sl for i in g]} bp): "
+        f"alignments and consensus on the card ({card_s:.2f} s) equal to device='cpu' "
+        f"({cpu_s:.2f} s), segment budget pinned at 1 GiB; launches over the phase {counts}")
+    pair_calls = {n: tuple(x.cpu() if torch.is_tensor(x) else x for x in a)
+                  for n, (k, a) in recorded.items() if k == "B"}
+    t0 = time.perf_counter()
+    rows_out = replay_rows(torch, recorded, dev)
+    log(f"[long_reads] replays {time.perf_counter() - t0:.1f} s; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts, rows_out, pair_calls, waves
 
 
 def phase_golden_demux(torch, st, kernels, kernel_d, dev):
@@ -2240,14 +2421,22 @@ def main(argv=None) -> int:
         torch, st, bench, kernels, main_path, dev, keep_waves=bool(save_shapes))
     krows += pair_rows(torch, pair_calls, dev)  # kernel B at the pipeline's own shapes
     krows += wrows  # kernels E and F at the pipeline's own shapes
-    if save_shapes:
-        torch.save({"B": pair_calls, "E": waves}, save_shapes)
-        log(f"[pipeline] kernel-B launch arguments and merge waves {sorted(waves)} saved to "
-            f"{save_shapes}")
+    saved = {"B": {n: tuple(x.cpu() if torch.is_tensor(x) else x for x in a)
+                   for n, a in pair_calls.items()}, "E": waves} if save_shapes else None
     del pair_calls, waves
     by_path["msa_library"], mrows = phase_msa_library(torch, st, reads, filt, kernels, dev)
     krows += mrows  # kernel H at the msa_library phase's own shapes
     del reads, filt
+    by_path["long_reads"], lrows, pair_calls, waves = phase_long_reads(
+        torch, st, kernels, dev, keep_waves=bool(save_shapes))
+    krows += lrows  # kernels B, E, F and H at the long-read shapes
+    if save_shapes:
+        saved["B"].update(pair_calls)
+        saved["E"].update(waves)
+        torch.save(saved, save_shapes)
+        log(f"[long_reads] kernel-B launch arguments {sorted(saved['B'])} and merge waves "
+            f"{sorted(saved['E'])} of the pipeline and long_reads phases saved to {save_shapes}")
+    del saved, pair_calls, waves
     by_path["golden_demux"] = phase_golden_demux(torch, st, kernels, SEGMENTS_KERNEL, dev)
     by_path["demux"] = phase_demux(torch, st, demux, kernels, dev)
     by_path["calibration"], solo, solo_s, crows = phase_calibration(
@@ -2287,8 +2476,12 @@ def main(argv=None) -> int:
     report = []
     for r in krows:
         kern, repl = replaces[r["key"]]
+        if r.get("route") == "wide":  # JAX runs its XLA DP for bands past the Pallas kernel's
+            repl = "sarlacc_tpu/ops/msa.py:49"
         launches, each = path_launches(kern.symbol)
-        extra = {k: r[k] for k in ("gcups", "tile", "lanes", "passes", "block_ms", "merge_route",
+        extra = {k: r[k] for k in ("gcups", "tile", "lanes", "passes", "block_ms", "cluster",
+                                   "active_clusters", "share",
+                                   "merge_route",
                                    "entries", "pairs", "chunks", "chain_rows", "fetches",
                                    "rounds", "up_last", "up_inner", "diag", "left", "other",
                                    "steps", "cells", "hits", "path_cells", "lev2_route",

@@ -16,9 +16,11 @@ Sequence A contributes code 5 past its stored width; B cells outside
 The kernel has three routes, chosen by band width (:func:`pair_route`): one
 warp a pair with the band in registers up to :data:`WARP_MAX_WIDTH` (every
 bucket of the pipeline), one block a pair with the band in shared memory up
-to :data:`BLOCK_MAX_WIDTH`, and one block a pair with the band's rows in a
-device scratch buffer up to :data:`MAX_WIDTH` (reads that differ in length
-by kilobases).  A build or launch error of any raises.
+to :data:`BLOCK_MAX_WIDTH`, and above it, up to :data:`MAX_WIDTH` (reads
+that differ in length by kilobases), the wide route: a thread-block cluster
+a pair, the band in registers across its blocks (:func:`wide_plan`).  A
+build or launch error of any raises; so does a cluster launch the card
+refuses.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from ..native.build import CudaKernel, check_tensor, kernel_resources
 __all__ = [
     "BLOCK_MAX_WIDTH", "MAX_WIDTH", "NEG", "PAIR_KERNEL", "PAIR_ROUTES", "WARP_MAX_WIDTH",
     "banded_pair", "banded_pair_plain", "pair_kernel", "pair_kernel_resources",
-    "pair_route",
+    "pair_route", "wide_plan",
 ]
 
 NEG = -1.0e9  # integer-ish scores stay far from this
@@ -46,7 +48,7 @@ _F = ctypes.c_float
 PAIR_KERNEL = CudaKernel(
     "pair_kernel.cu",
     "sarlacc_pair_kernel",
-    [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _P, _P, _P],
+    [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P],
 )
 
 #: Widest band the kernel takes: ``multi_read_align`` caps reads at 32 000
@@ -63,12 +65,14 @@ WARP_MAX_WIDTH = 512
 #: The routes, in the kernel's numbering.
 PAIR_ROUTES = ("warp", "block", "wide")
 
-#: Blocks of 256 threads a wide-route launch puts on each of the card's
-#: SMs (at most); they stride over the pairs, each with its own [6, W]
-#: float32 slice of scratch.
-WIDE_BLOCKS_PER_SM = 2
+#: Band cells one block of the wide route holds: 512 threads of 16 cells,
+#: each thread's S, V and B codes in registers.
+WIDE_BLOCK_CELLS = 8192
 
-#: Narrowest band the wide route takes: one cell for each of its threads.
+#: Threads a block of the wide route (at most; fewer below 512 cells).
+WIDE_THREADS = 512
+
+#: Narrowest band the wide route takes: one cell for each of 256 threads.
 WIDE_MIN_WIDTH = 256
 
 
@@ -79,6 +83,22 @@ def pair_route(width: int) -> str:
     if width <= WARP_MAX_WIDTH:
         return "warp"
     return "block" if width <= BLOCK_MAX_WIDTH else "wide"
+
+
+def wide_plan(width: int) -> tuple[int, int, int]:
+    """(threads a block, band cells a thread, blocks a cluster) of the wide
+    route at band width ``width``: the fewest blocks of at most
+    :data:`WIDE_BLOCK_CELLS` cells that hold the band, so one block up to
+    it and above a cluster of ``width / WIDE_BLOCK_CELLS`` blocks (2, 4, 8
+    at W 16 384, 32 768, 65 536), each holding a contiguous slice.  Raises
+    on a width the kernel lacks."""
+    if not WIDE_MIN_WIDTH <= width <= MAX_WIDTH or width & (width - 1):
+        raise ValueError(f"kernel B's wide route has no band width {width}: it takes a power "
+                         f"of two from {WIDE_MIN_WIDTH} to {MAX_WIDTH}")
+    cluster = max(1, width // WIDE_BLOCK_CELLS)
+    cells = width // cluster
+    threads = min(cells, WIDE_THREADS)
+    return threads, cells // threads, cluster
 
 
 def _route_takes(route: str, width: int) -> bool:
@@ -219,18 +239,12 @@ def _launch_pair(
     dev = codes_a.device
     dirs = torch.empty((rows, P, width), dtype=torch.int8, device=dev)
     scores = torch.empty(P, dtype=torch.float32, device=dev)
-    grid, scratch = 0, None
-    if route == "wide":
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        grid = max(1, min(P, WIDE_BLOCKS_PER_SM * sms))
-        scratch = torch.empty((grid, 6, width), dtype=torch.float32, device=dev)
     PAIR_KERNEL.launch(
         codes_a.data_ptr(), LA, codes_b.data_ptr(), LB,
         lens_a.data_ptr(), lens_b.data_ptr(), lo.data_ptr(), kmax.data_ptr(),
         P, rows, width,
         float(np.float32(match)), float(np.float32(mismatch)),
         float(np.float32(gap_open)), float(np.float32(gap_ext)), PAIR_ROUTES.index(route),
-        None if scratch is None else scratch.data_ptr(), grid,
         dirs.data_ptr(), scores.data_ptr(),
         torch.cuda.current_stream(dev),
     )
@@ -241,12 +255,40 @@ def pair_kernel_resources(widths=(256, 512, 1024), kernel=PAIR_KERNEL) -> dict:
     """Kernel B as compiled for each band width of ``widths`` on its own
     route (and the block route below :data:`WARP_MAX_WIDTH` too), from
     ``cudaFuncGetAttributes``: keys ``"B:warp@256"`` and so on, values as
-    ``ops/cuda_align.py::score_kernel_resources``'s."""
+    ``ops/cuda_align.py::score_kernel_resources``'s; the wide route's
+    (:func:`_wide_resources`) also give its cluster."""
     fn = kernel.function("sarlacc_pair_attrs", [_I, _I, _P])
+    out = {}
+    for w in widths:
+        for route in PAIR_ROUTES:
+            if route == "wide":
+                if pair_route(w) == "wide":
+                    out[f"B:wide@{w}"] = _wide_resources(w, kernel=kernel)
+            elif _route_takes(route, w):
+                out[f"B:{route}@{w}"] = kernel_resources(fn, PAIR_ROUTES.index(route), w)
+    return out
+
+
+def _wide_resources(width: int, kernel=PAIR_KERNEL) -> dict:
+    """The wide route's kernel at ``width`` (:func:`wide_plan`): registers,
+    static shared bytes (the warps' summaries; no dynamic shared memory)
+    and spill bytes a thread, resident blocks an SM, threads a block,
+    ``cluster`` (blocks a cluster) and ``active_clusters``
+    (``cudaOccupancyMaxActiveClusters``: clusters of that size the card can
+    hold at once).  Raises if the card can hold none."""
+    fn = kernel.function("sarlacc_pair_wide_attrs", [_I, _P])
+    buf = (ctypes.c_int * 7)()
+    rc = fn(width, ctypes.cast(buf, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"kernel B wide route attributes at W {width}: CUDA error {rc}")
+    regs, smem, spill, per_sm, thr, clus, active = list(buf)
+    if active <= 0:
+        raise RuntimeError(f"kernel B wide route at W {width}: the card holds no cluster of "
+                           f"{clus} blocks of {thr} threads")
     return {
-        f"B:{route}@{w}": kernel_resources(fn, PAIR_ROUTES.index(route), w)
-        for w in widths for route in PAIR_ROUTES
-        if _route_takes(route, w) and (route != "wide" or pair_route(w) == "wide")
+        "registers": regs, "shared_bytes": smem, "dynamic_shared_bytes": 0, "spill_bytes": spill,
+        "blocks_per_sm": per_sm, "threads": thr, "occupancy": per_sm * thr / 32 / 64,
+        "cluster": clus, "active_clusters": active,
     }
 
 

@@ -13,10 +13,13 @@ same inputs, all made from seeds or read from FILE:
   (R = 51) and adaptor2 (R = 14), fitting; at quality_align's launch (300
   reads against 500 bp of read 0, global, R = 500); and at R = 150 global
   over the stacked ends;
-* kernel B at one bucket of 4096 pipeline-shaped pairs x 1024 rows x W 256
-  and at each launch shape in FILE's ``"B"`` (``chip_smoke.py
-  --save-shapes FILE`` writes the arguments of every distinct (P, rows, W)
-  the pipeline's warm-up pass sent to ``banded_pair``);
+* kernel B at one bucket of 4096 pipeline-shaped pairs x 1024 rows x W 256,
+  on its wide route at ``chip_smoke.py``'s two synthetic shapes (64 pairs
+  of 128-256-bp reads in 4.0-4.6-kb ones, W 8192; 4 pairs in 31-32-kb
+  ones at bandwidth 16 500, W 65 536), and at each launch shape in FILE's
+  ``"B"`` (``chip_smoke.py --save-shapes FILE`` writes the arguments of
+  every distinct (P, rows, W) the pipeline's warm-up pass sent to
+  ``banded_pair``, and of every (rows, W) of the long_reads phase's);
 * kernel F (``pair_walk``) on the directions the root's kernel B gives for
   each of those buckets (kernel B is bit-identical across the roots);
 * kernel E's whole wave path, ``ops/msa.py::merge_wave_from_library`` on
@@ -50,11 +53,39 @@ import os
 import subprocess
 import sys
 
-__all__ = ["main", "run_root"]
+__all__ = ["main", "run_root", "wide_pair_args"]
 
 ADAPTOR1 = "ACGCTAGCATCAGTC" + "NNNN" + "CACAGCTACGA" + "N" * 12 + "CGTACGCAT"  # bench.py:108
 ADAPTOR2 = "TGCATCGATCGCAT"
 LONG = ("ACGTRYKMSWBDHVN" * 10)[:150]
+
+
+def wide_pair_args(torch, dev, P, rows, lb_range, bw, W, seed):
+    """banded_pair arguments for P pairs whose A reads (``rows`` // 2 to
+    ``rows`` bases) sit, 80% kept, inside B reads of ``lb_range`` bases:
+    bands of |lb - la| + 2 ``bw`` + 1 cells, within ``W`` (kernel B's wide
+    route in ``chip_smoke.py`` and here)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    LB = lb_range[1]
+    ca = rng.integers(0, 4, (P, rows)).astype(np.int8)
+    cb = rng.integers(0, 4, (P, LB)).astype(np.int8)
+    for p, off in enumerate(rng.integers(0, lb_range[0] - rows, P)):
+        keep = rng.random(rows) < 0.8
+        cb[p, off : off + rows] = np.where(keep, ca[p], cb[p, off : off + rows])
+    la = rng.integers(rows // 2, rows + 1, P)
+    lb = rng.integers(lb_range[0], LB + 1, P)
+    lo = np.minimum(0, lb - la) - bw
+    hi = np.maximum(0, lb - la) + bw
+    if int((hi - lo).max()) + 1 > W:
+        raise AssertionError(f"a band of {int((hi - lo).max()) + 1} cells exceeds W = {W}")
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.asarray(a, dtype), device=dev)
+
+    return (t(ca), t(cb), t(la, np.int32), t(lb, np.int32), t(lo, np.int32),
+            t(hi - lo, np.int32), 0.0, -1.0, 5.0, 1.0, rows, W)
 
 
 def _inputs(torch, st, dev, shapes, kernels):
@@ -127,9 +158,13 @@ def _inputs(torch, st, dev, shapes, kernels):
         t(ca), t(cb), t(la, np.int32), t(lb, np.int32), t(lo, np.int32),
         t(hi - lo, np.int32), 0.0, -1.0, 5.0, 1.0, rows, W,
     )}
+    for P, lb_range, bw_, W_, seed in ((64, (4000, 4600), 100, 8192, 5),
+                                       (4, (31000, 32000), 16500, 65536, 6)):
+        buckets[f"wide:P{P}xR256xW{W_}"] = wide_pair_args(torch, dev, P, 256, lb_range, bw_, W_,
+                                                          seed)
     saved = torch.load(shapes, weights_only=False) if shapes else {}
-    for name, args in saved.get("B", {}).items():
-        buckets[name.split(":", 1)[-1]] = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    for name, args in saved.get("B", {}).items():  # "pipeline:PxRxW", "long_reads:PxRxW"
+        buckets[name] = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
     for name, args in buckets.items():
         for which in "BF":
             if which in kernels:

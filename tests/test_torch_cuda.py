@@ -535,8 +535,7 @@ def _wide_pairs(rng, P, rows, lb_range, bw):
 @pytest.mark.parametrize("P", [3, 300])
 def test_pair_kernel_wide_route_matches_plain(cuda_device, P):
     """W = 8192 (reads 4-4.6 kb against 128-256 bp) takes the wide route;
-    300 pairs make its blocks (two an SM, 264 on an H100) stride over the
-    pairs."""
+    300 pairs are 300 clusters (of one block at this width) in one launch."""
     rng = np.random.default_rng(P)
     arrays = _wide_pairs(rng, P, 256, (4000, 4600), 100)
     assert int(arrays[5].max()) + 1 <= 8192 and pair_route(8192) == "wide"
@@ -562,6 +561,46 @@ def test_pair_kernel_wide_route_forced_matches_plain(cuda_device, rows, W):
     torch.cuda.synchronize()
     assert torch.equal(d_k, d_p)
     assert torch.equal(s_k, s_p)
+
+
+#: (W, rows, B's length range): every cluster size of the wide route (1, 2,
+#: 4, 8 blocks a pair), A reads of rows // 2 to rows bases, bandwidth 100.
+WIDE_CLUSTER_SHAPES = [(8192, 256, (4000, 4600)), (16384, 128, (9000, 12000)),
+                       (32768, 64, (20000, 28000)), (65536, 32, (40000, 60000))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 3, 300])
+@pytest.mark.parametrize("W,rows,lb_range", WIDE_CLUSTER_SHAPES,
+                         ids=[f"W{w}" for w, _, _ in WIDE_CLUSTER_SHAPES])
+def test_pair_kernel_wide_clusters_match_plain(cuda_device, W, rows, lb_range, P):
+    """The wide route on its own cluster of W / 8192 blocks a pair (one
+    block at 8192), one launch, against the plain version bit for bit."""
+    rng = np.random.default_rng(W + P)
+    arrays = _wide_pairs(rng, P, rows, lb_range, 100)
+    assert int(arrays[5].max()) < W and pair_route(W) == "wide"
+    assert cuda_msa.wide_plan(W)[2] == W // 8192
+    args = [torch.as_tensor(a, device=cuda_device) for a in arrays]
+    before = PAIR_KERNEL.launches
+    s_k, d_k = banded_pair(*args, 0.0, -1.0, 5.0, 1.0, rows, W)
+    assert PAIR_KERNEL.launches == before + 1
+    s_p, d_p = banded_pair_plain(*args, 0.0, -1.0, 5.0, 1.0, rows, W)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, d_p)
+    assert torch.equal(s_k, s_p)
+
+
+@pytest.mark.cuda
+def test_pair_kernel_wide_resources(cuda_device):
+    """The wide route's kernel at each width: 512 threads, the cluster of its
+    plan, some clusters resident at once, nothing spilled."""
+    res = cuda_msa.pair_kernel_resources((4096, 8192, 16384, 32768, 65536))
+    assert "B:wide@4096" not in res
+    for W in (8192, 16384, 32768, 65536):
+        r = res[f"B:wide@{W}"]
+        assert r["cluster"] == W // 8192 and r["threads"] == 512, (W, r)
+        assert r["active_clusters"] > 0 and r["spill_bytes"] == 0, (W, r)
+        assert 0 < r["registers"] <= 128 and r["blocks_per_sm"] >= 1, (W, r)
 
 
 @pytest.mark.cuda

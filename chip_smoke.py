@@ -123,12 +123,18 @@ on its own line:
    synchronised step time and its host readbacks; for the two
    scan workloads the groups of a 2 500-UMI slice equal the same call on
    ``device="cpu"``;
-12. tools: every new kernel (the five kernel-C ablations, the four op-mix
-    and five op-rate classes) against its plain version on the card, bit
-    for bit (the chains at 4 iterations), ``full`` against kernel C and the
-    profile's pure kernel C against ``dp_scores``; then the four
-    measurement tools (``sarlacc_tpu_torch.tools``) once each at their
-    defaults with 2 reps, with the launch counts.
+12. tools: every new kernel against its plain version on the card, bit
+    for bit: the five ablations of kernel C (its own body with parts
+    removed) at the script's shape (100 000 x 250 x R 51, global) and at
+    calibration's kernel-C launch (19 926 reads, R 51, fitting), with each
+    variant's registers and resident blocks, ``full`` also against kernel
+    C (bits, and time in turns within 5%); the four op-mix and five
+    op-rate classes at 4 iterations (with their SASS counts) and at the
+    tools' default iterations (2 048 and 512: their rows, with each class's
+    share of its issue ceiling at the card's top SM clock); the profile's
+    pure kernel C against ``dp_scores``; then the four measurement tools
+    (``sarlacc_tpu_torch.tools``) once each at their defaults with 2 reps
+    (the ablation at both shapes), with the launch counts.
 13. scale_tools: the ten scale tools (the rest of ``scripts/``) once each
     through their ``measure()``: ``msa_scale_mem`` 2 x 100 groups,
     ``bench_500k`` 150 molecules, ``profile_msa_scale`` 300 groups,
@@ -206,11 +212,11 @@ PEAK_F32 = 67e12
 #: substitution select, M,
 #: the vertical gap, mv, B and its running max, the closed horizontal gap,
 #: the masks, S and the choice); C and D 10 (``csrc/score_kernel.cu``'s
-#: ordinary cell: 6 adds, 4 maxes); the ablation kernels 17, the column-outer
-#: body (``tools/op_rates.py::COLUMN_BODY_CENSUS``: 10 adds, 4 maxes, 3 selects);
+#: ordinary cell: 6 adds, 4 maxes; the ablation variants count their own,
+#: ``ablation_bound``);
 #: I 6 integer operations (``csrc/lev2_kernel.cu``'s cell: two adds, two
 #: minimums, the substitution cost from two bits), held to the same rate.
-OPS_PER_CELL = {"A": 26, "B": 21, "C": 10, "D": 10, "ablation": 17, "E": 6, "I": 6}
+OPS_PER_CELL = {"A": 26, "B": 21, "C": 10, "D": 10, "E": 6, "I": 6}
 
 
 def nbytes(*tensors) -> int:
@@ -2099,39 +2105,94 @@ TOOL_REPLACES = {
 }
 
 
+def ablation_bound(variant, args):
+    """(bound ms, by) of one ablation variant on ``args`` (from
+    ``score_ablation.make_inputs``), from its own cell census
+    (``tools/op_rates.py::ABLATION_CENSUS``: its adds and maxes a cell) and
+    the bytes it must read: every computed row's code and the cost slots
+    the columns select (only the code without cost reads, only row 0's
+    with ``no-rowload``), the lengths, and one score a read."""
+    from sarlacc_tpu_torch.tools.op_rates import ABLATION_CENSUS
+    from sarlacc_tpu_torch.tools.score_ablation import NO_DYNCOST, NO_ROWLOAD, VARIANTS
+
+    modes, mask, *_, lengths = args
+    flags = VARIANTS[variant]
+    rows = float((lengths.double() + 1).sum())
+    census = ABLATION_CENSUS[variant]
+    ops = rows * modes.numel() * (census["add"] + census["max"])
+    if flags & NO_DYNCOST:
+        n_bytes = int(rows) * 4 + nbytes(modes, mask, lengths)
+    else:
+        n_bytes = score_bytes(modes, mask, lengths.numel() if flags & NO_ROWLOAD else rows, lengths)
+    return bound(n_bytes + 4 * lengths.numel(), ops)
+
+
 def phase_tools(torch, dev):
-    """Every new kernel against its plain version (launches not counted),
-    then the four tools at their defaults with the counts reset."""
+    """Every new kernel against its plain version (launches not counted):
+    the five ablations of kernel C at the script's shape (100 000 reads x
+    250 x R 51, global) and at calibration's kernel-C launch (19 926 reads,
+    R 51, fitting), ``full`` also against kernel C in bits and time; the
+    op-chain classes at 4 iterations (bits and SASS) and at the tools'
+    default iterations (the rows of the kernels line, with each class's
+    share of its issue ceiling); then the four tools at their defaults
+    (the ablation at both shapes) with the counts reset."""
     from sarlacc_tpu_torch.api.align_internal import prepare_adaptor, prepare_scores_input
     from sarlacc_tpu_torch.ops.align import dp_scores
-    from sarlacc_tpu_torch.ops.cuda_align import SCORE_KERNEL, encode_mask
+    from sarlacc_tpu_torch.ops.cuda_align import SCORE_KERNEL, encode_mask, score_tile
     from sarlacc_tpu_torch.tools import op_mix, op_rates, profile_demux, score_ablation
     from sarlacc_tpu_torch.tools.timing import event_ms
 
-    checks = []  # (family, name, kernel, max_abs_err, ms, plain_ms, bound_ms, bound_by)
-    args = score_ablation.make_inputs(100_000, 250, 51, dev)
-    modes, mask, *_, lengths = args
-    abl_rows = float((lengths.double() + 1).sum())
-    abl_bound = bound(score_bytes(modes, mask, abl_rows, lengths) + 4 * lengths.numel(),
-                      abl_rows * modes.numel() * OPS_PER_CELL["ablation"])
-    for v, r in score_ablation.check(args).items():
-        checks.append(("ablation", v, score_ablation.KERNELS[v], r["max_abs_err"], r["ms"],
-                       r["plain_ms"], *abl_bound))
-    log("[tools] ablation: the five variants equal their plain versions at N=100000 L=250 "
-        f"R=51 (full also equals kernel C); bound {abl_bound[0]:.3f} ms ({abl_bound[1]})")
+    # (family, name, kernel, max_abs_err, ms, plain_ms, bound_ms, bound_by, extra keys)
+    checks = []
+    shapes = {"default": (score_ablation.make_inputs(100_000, 250, 51, dev), False),
+              "calibration": (score_ablation.make_inputs(19_926, 250, 51, dev), True)}
+    for shape, (args, local) in shapes.items():
+        res = score_ablation.check(args, local)
+        c = res.pop("kernel C")
+        tj = score_tile([(0, int(args[0].shape[0]), local)])
+        attrs = score_ablation.ablation_resources(tj)
+        sass = score_ablation.ablation_sass(tj)
+        for v, r in res.items():
+            extra = {k: attrs[v][k] for k in ("registers", "spill_bytes", "blocks_per_sm")}
+            if v in sass:
+                extra["sass_instructions"] = sass[v]
+            if v == "full":
+                extra.update(kernel_c_ms=c["ms"], full_turns_ms=c["full_ms"])
+            checks.append(("ablation", f"{v}@{shape}", score_ablation.KERNELS[v], r["max_abs_err"],
+                           r["ms"], r["plain_ms"], *ablation_bound(v, args), extra))
+        log(f"[tools] ablation at {shape} (N={args[-1].numel()} R={args[0].numel()} "
+            f"{'fitting' if local else 'global'}, tile {tj}): the five variants equal their plain "
+            f"versions; full equals kernel C and takes {c['full_ms']:.4f} ms against C's "
+            f"{c['ms']:.4f} ms in turns ({100 * (c['full_ms'] / c['ms'] - 1):+.2f}%); bounds "
+            + ", ".join(f"{v} {ablation_bound(v, args)[0]:.4f} ms" for v in res))
     rows = op_rates.grid_rows(dev)
     chain_bytes = 4 * rows * 32 * 4  # three inputs and one output of [rows, 32] float32
     for fam, mod in (("op_mix", op_mix), ("op_rates", op_rates)):
         res = mod.check(dev)
+        sass = "instruction counts intact" if all(r["sass_checked"] for r in res.values()) else \
+            "cuobjdump missing, instruction counts not checked"
+        log(f"[tools] {fam}: {len(res)} classes equal their plain versions at 4 iterations; {sass}")
+        res = mod.check(dev, iters=mod.ITERS)
+        ops = {}
         for cls, r in res.items():
             it = r["iters"]
             per_thread = (it * op_mix.DEPTH * op_mix.CLASSES[cls][1] + it if fam == "op_mix"
                           else it * op_rates.CHAINS * op_rates.DEPTH)
-            checks.append((fam, f"{cls}@{it}iters", mod.KERNELS[cls], r["max_abs_err"],
-                           r["ms"], r["plain_ms"], *bound(chain_bytes, per_thread * rows * 32)))
-        sass = "instruction counts intact" if all(r["sass_checked"] for r in res.values()) else \
-            "cuobjdump missing, instruction counts not checked"
-        log(f"[tools] {fam}: {len(res)} classes equal their plain versions at 4 iterations; {sass}")
+            ops[cls] = per_thread * rows * 32
+        mixes = op_mix.MIX_PIPES if fam == "op_mix" else op_rates.RATE_MIX
+        sms, clock, shares = op_rates.issue_shares(
+            {cls: ops[cls] / (r["ms"] * 1e-3) for cls, r in res.items()}, mixes, dev)
+        for cls, r in res.items():
+            ceil, share = shares.get(cls, (None, None))
+            checks.append((fam, f"{cls}@{r['iters']}iters", mod.KERNELS[cls], r["max_abs_err"],
+                           r["ms"], r["plain_ms"], *bound(chain_bytes, ops[cls]),
+                           {"ops_per_s": ops[cls] / (r["ms"] * 1e-3), "issue_ceiling": ceil,
+                            "issue_share": share, "sm_clock_mhz": clock and clock / 1e6}))
+            log(f"[tools] {fam} {cls} at {r['iters']} iterations: equal to its plain version, "
+                f"{r['ms']:.4f} ms = {ops[cls] / (r['ms'] * 1e-3):.4e} ops/s, plain "
+                f"{r['plain_ms']:.1f} ms, bound {bound(chain_bytes, ops[cls])[0]:.4f} ms; "
+                + (f"{100 * share:.1f}% of its issue ceiling {ceil:.4e} ops/s ({sms} SMs x "
+                   f"{clock / 1e6:.0f} MHz)" if share else "SM clock not read"))
     # The profile's pure kernel C at its shape, against dp_scores.
     import numpy as np
 
@@ -2153,7 +2214,7 @@ def phase_tools(torch, dev):
                    event_ms(lambda: dp_scores(*pargs, True), 1, dev),
                    *bound(score_bytes(*pargs[:2], float((lengths.double() + 1).sum()), lengths)
                           + 4 * lengths.numel(),
-                          float((lengths.double() + 1).sum()) * len(a1) * OPS_PER_CELL["C"])))
+                          float((lengths.double() + 1).sum()) * len(a1) * OPS_PER_CELL["C"]), {}))
     del prep, planes, front
 
     kernels = [*score_ablation.KERNELS.values(), *op_mix.KERNELS.values(),
@@ -2161,7 +2222,9 @@ def phase_tools(torch, dev):
     reset(kernels)
     t0 = time.perf_counter()
     results = {
-        "ablation": score_ablation.measure(reps=2, check_first=False, args=args, log=log),
+        **{f"ablation@{shape}": score_ablation.measure(
+            int(args[-1].numel()), 250, int(args[0].numel()), reps=2, check_first=False,
+            args=args, local=local, log=log) for shape, (args, local) in shapes.items()},
         "op_mix": op_mix.measure(reps=2, check_first=False, log=log),
         "op_rates": op_rates.measure(reps=2, check_first=False, log=log),
         "profile_demux": profile_demux.measure(reps=2, log=log),
@@ -2612,7 +2675,7 @@ def main(argv=None) -> int:
             "library_ms": None,
             **extra,
         })
-    for family, name, kern, err, ms, plain_ms, bms, by in tool_checks:
+    for family, name, kern, err, ms, plain_ms, bms, by, *extra in tool_checks:
         report.append({
             "name": f"{kern.symbol.removeprefix('sarlacc_')}[{family}:{name}]",
             "route": "cuda",
@@ -2626,6 +2689,7 @@ def main(argv=None) -> int:
             "bound_ms": bms,
             "bound_by": by,
             "library_ms": None,
+            **(extra[0] if extra else {}),
         })
     print(smi)
     print(json.dumps({"kernels": report}))

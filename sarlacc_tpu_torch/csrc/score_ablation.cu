@@ -1,150 +1,62 @@
-// The column-outer score DP with parts of its per-cell work ablated, for
-// attributing its time on the card.  Replaces scripts/microbench_score_ablation.py's
-// _kernel_ablate (launched by its _launch, pallas_call at :123).
-// Plain PyTorch versions: sarlacc_tpu_torch/tools/score_ablation.py::
-// ablated_scores_plain (``full`` is ops/align.py::dp_scores).
+// Kernel C with parts of its cell body ablated, for attributing its time on
+// the card.  Replaces scripts/microbench_score_ablation.py's _kernel_ablate
+// (launched by its _launch, pallas_call at :123).  Plain PyTorch versions:
+// sarlacc_tpu_torch/tools/score_ablation.py::ablated_scores_plain.
 //
-// The body is a per-read DP that walks the columns outer and keeps S and H
-// in [l1, n_pad] device-memory planes (kernel C's design before its row
-// tiles; same scores), templated over three ablation flags.  Every variant
-// keeps the launch shape, the loop structure and the one-thread-per-read
-// layout; each flag removes one suspect of that design (the TPU's
-// suspects, the log-shift prefix scan and dynamically indexed VMEM reads,
-// have no counterpart here):
+// There is no DP here: each entry launches kernel C's own template
+// (score_kernel<TOP, F> of csrc/score_kernel.cu, included below with its
+// kernel D and entry points left out) with one set of ablation flags, at
+// kernel C's launch shape: 128 threads a block, one read a thread, the tile
+// width the wrapper picks from R, C's __launch_bounds__, and C's hand-off
+// scratch for references wider than one tile.  The variants:
 //
-//   NO_VGAP     the running vertical-gap max ``cum`` is dropped (V = NEG):
-//               removes the serial max chain and its ramps;
-//   NO_DYNCOST  the cost is (code == 1) ? -0.1 : -1.0 with no cost-plane
-//               loads (the JAX ablation's constant): removes one 4-byte
-//               load per cell from [4, l1, n_pad] planes;
-//   NO_STATE    S and H of every row are read and written at row 0's
-//               address: the loads and stores stay but hit L1, which
-//               isolates the 16 bytes of row-state traffic per cell.  The
-//               row index is ANDed with ``row_mask`` (0 from the wrapper)
-//               rather than set to 0: an address the compiler could prove
-//               constant would let it keep S and H in registers and drop
-//               the loads and stores altogether.
+//   full        no flag: kernel C itself, bit for bit and launch for launch;
+//   no_vgap     NO_VGAP: the columns' running vertical-gap max dropped;
+//   no_dyncost  NO_DYNCOST: one cost a row from the code, no cost slot read;
+//   neither     both;
+//   no_rowload  NO_ROWLOAD: every row's code and costs fetched from row
+//               (i & row_mask), 0 from the wrapper, so C's only
+//               device-memory traffic hits L1.
 //
-// Results of the ablated variants are wrong by design but deterministic,
-// and each equals its plain version bit for bit; ``full`` equals kernel C.
-// Compile with --fmad=false, as kernel C.
+// Scores of the ablated variants are wrong by design but deterministic, and
+// each equals its plain version bit for bit.  Compile with --fmad=false, as
+// kernel C.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#define SCORE_BODY_ONLY
+#include "score_kernel.cu"
 
-namespace {
-
-constexpr float NEG = -3.0e38f;
-constexpr int THREADS = 128;
-
-template <bool NO_VGAP, bool NO_DYNCOST, bool NO_STATE>
-__device__ float score_one(
-    int n, const int32_t* __restrict__ modes, const int32_t* __restrict__ mask,
-    int rlen, float go, float ge, bool local,
-    const float* __restrict__ costm, const float* __restrict__ costmm,
-    const int32_t* __restrict__ codes_k, int n_pad, size_t plane,
-    float* __restrict__ S, float* __restrict__ H, int len, int row_mask)
-{
-    float out = 0.0f;
-    for (int i = 0; i <= len; ++i) {
-        const size_t st = (size_t)(NO_STATE ? (i & row_mask) : i) * n_pad + n;
-        out = (local || i == 0) ? 0.0f : (-go) - ((float)i - 1.0f) * ge;
-        S[st] = out;
-        H[st] = NEG;
+// One C entry a variant: kernel C's arguments, then row_mask (read only by
+// no_rowload).  A CUDA error code (0 on success); a tile width other than
+// 15, 31 or 63 is refused (cudaErrorInvalidValue).
+#define SARLACC_ABLATION_ENTRY(NAME, FLAGS)                                      \
+    extern "C" int NAME(                                                         \
+        const int32_t* modes, const int32_t* mask, int rlen, float go,           \
+        float ge, int local, const float* costm, const float* costmm,            \
+        const int32_t* codes_k, const int32_t* lengths, int n, int l1,           \
+        int n_pad, int tj, float* scratch, float* out, int row_mask,             \
+        void* stream)                                                            \
+    {                                                                            \
+        return launch_score<FLAGS>(modes, mask, rlen, go, ge, local, costm,      \
+                                   costmm, codes_k, lengths, n, l1, n_pad, tj,   \
+                                   scratch, out, nullptr, row_mask, stream);     \
     }
 
-    for (int j = 0; j < rlen; ++j) {
-        const bool zero_vgap = local && j == rlen - 1;
-        const int m = modes[j] - 1;
-        const int mk = mask[j];
-        const float* cm = costm + (size_t)m * plane;
-        const float* cmm = costmm + (size_t)m * plane;
+SARLACC_ABLATION_ENTRY(sarlacc_ablate_full, 0)
+SARLACC_ABLATION_ENTRY(sarlacc_ablate_no_vgap, NO_VGAP)
+SARLACC_ABLATION_ENTRY(sarlacc_ablate_no_dyncost, NO_DYNCOST)
+SARLACC_ABLATION_ENTRY(sarlacc_ablate_neither, NO_VGAP | NO_DYNCOST)
+SARLACC_ABLATION_ENTRY(sarlacc_ablate_no_rowload, NO_ROWLOAD)
 
-        float s_up = NEG;
-        float cum = NEG;
-        for (int i = 0; i <= len; ++i) {
-            const size_t at = (size_t)i * n_pad + n;
-            const size_t st = NO_STATE ? (size_t)(i & row_mask) * n_pad + n : at;
-            const float s_old = S[st];
-            const float h_old = H[st];
-            const int code = codes_k[at];
-            float cost;
-            if (NO_DYNCOST) {
-                cost = (code == 1) ? -0.1f : -1.0f;
-            } else {
-                cost = ((mk >> code) & 1) ? cm[at] : cmm[at];
-            }
-
-            const float Hn = fmaxf(s_old - go, h_old - ge);
-            const float M = s_up + cost;
-            const float mv = fmaxf(M, Hn);
-            float V = NEG;
-            if (!NO_VGAP) {
-                V = zero_vgap ? cum : cum - ((float)i - 1.0f) * ge;
-                const float B = zero_vgap ? mv : (mv - go) + (float)i * ge;
-                cum = fmaxf(cum, B);
-            }
-            out = fmaxf(mv, V);
-
-            S[st] = out;
-            H[st] = Hn;
-            s_up = s_old;
-        }
-    }
-    return out;
-}
-
-template <bool NO_VGAP, bool NO_DYNCOST, bool NO_STATE>
-__global__ void ablate_kernel(
-    const int32_t* __restrict__ modes, const int32_t* __restrict__ mask,
-    int rlen, float go, float ge, int local,
-    const float* __restrict__ costm, const float* __restrict__ costmm,
-    const int32_t* __restrict__ codes_k, const int32_t* __restrict__ lengths,
-    int n, int l1, int n_pad, float* __restrict__ S, float* __restrict__ H,
-    float* __restrict__ out, int row_mask)
+// Resources of the variant with ablation flags ``flags`` at tile width tj,
+// as sarlacc_score_attrs gives kernel C's; other flags are refused.
+extern "C" int sarlacc_ablation_attrs(int flags, int tj, int* out)
 {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= n) return;
-    int len = lengths[t];
-    len = len < 0 ? 0 : (len > l1 - 1 ? l1 - 1 : len);
-    out[t] = score_one<NO_VGAP, NO_DYNCOST, NO_STATE>(
-        t, modes, mask, rlen, go, ge, local != 0, costm, costmm, codes_k,
-        n_pad, (size_t)l1 * n_pad, S, H, len, row_mask);
-}
-
-template <bool NO_VGAP, bool NO_DYNCOST, bool NO_STATE>
-int launch(
-    const int32_t* modes, const int32_t* mask, int rlen, float go, float ge,
-    int local, const float* costm, const float* costmm, const int32_t* codes_k,
-    const int32_t* lengths, int n, int l1, int n_pad, float* S, float* H,
-    float* out, int row_mask, void* stream)
-{
-    if (n <= 0 || l1 <= 0) return 0;
-    const int blocks = (n + THREADS - 1) / THREADS;
-    ablate_kernel<NO_VGAP, NO_DYNCOST, NO_STATE><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        modes, mask, rlen, go, ge, local, costm, costmm, codes_k, lengths, n,
-        l1, n_pad, S, H, out, row_mask);
-    return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// One C entry per variant, each with kernel C's arguments and row_mask.
-#define SARLACC_ABLATION_ENTRY(NAME, A, B, C)                                  \
-    extern "C" int NAME(                                                       \
-        const int32_t* modes, const int32_t* mask, int rlen, float go,         \
-        float ge, int local, const float* costm, const float* costmm,          \
-        const int32_t* codes_k, const int32_t* lengths, int n, int l1,         \
-        int n_pad, float* S, float* H, float* out, int row_mask,               \
-        void* stream)                                                          \
-    {                                                                          \
-        return launch<A, B, C>(modes, mask, rlen, go, ge, local, costm,        \
-                               costmm, codes_k, lengths, n, l1, n_pad, S, H,   \
-                               out, row_mask, stream);                         \
+    switch (flags) {
+    case 0: return kernel_attrs(score_kernel_for<0>(tj), out);
+    case NO_VGAP: return kernel_attrs(score_kernel_for<NO_VGAP>(tj), out);
+    case NO_DYNCOST: return kernel_attrs(score_kernel_for<NO_DYNCOST>(tj), out);
+    case NO_VGAP | NO_DYNCOST: return kernel_attrs(score_kernel_for<NO_VGAP | NO_DYNCOST>(tj), out);
+    case NO_ROWLOAD: return kernel_attrs(score_kernel_for<NO_ROWLOAD>(tj), out);
+    default: return (int)cudaErrorInvalidValue;
     }
-
-SARLACC_ABLATION_ENTRY(sarlacc_ablate_full, false, false, false)
-SARLACC_ABLATION_ENTRY(sarlacc_ablate_no_vgap, true, false, false)
-SARLACC_ABLATION_ENTRY(sarlacc_ablate_no_dyncost, false, true, false)
-SARLACC_ABLATION_ENTRY(sarlacc_ablate_neither, true, true, false)
-SARLACC_ABLATION_ENTRY(sarlacc_ablate_no_state, false, false, true)
+}

@@ -39,6 +39,19 @@
 // 2-8 costs a row (plus the tile hand-off of long references) and one
 // score per (read, segment).
 //
+// Ablation.  The body takes compile-time flags (F below) that each remove
+// one part of its work, for attributing kernel C's time on the card
+// (csrc/score_ablation.cu, tools/score_ablation.py): NO_VGAP drops the
+// columns' running vertical-gap max (s = mv; 3 adds and 2 maxes of a
+// cell's 6 + 4), NO_DYNCOST takes the cost (code == 1 ? -0.1 : -1.0) for
+// the whole row instead of the two shared loads a cell (no cost slot is
+// fetched, no row table filled), NO_ROWLOAD fetches row i + 1's code and
+// costs at row (i + 1) & row_mask (0 from the ablation's wrapper), so the
+// loads stay but hit L1: a provably constant address would let the
+// compiler drop them.  Kernels C and D are the body with no flag; this
+// file's entries never set one.  Defining SCORE_BODY_ONLY before including
+// this file leaves out kernel D and the entry points.
+//
 // Exactness: compile with --fmad=false.  The association
 // (mv - go) + i*ge and cum - (i-1)*ge must not contract into FMAs, or the
 // last bit moves and the barcode argmax can flip on a tie.
@@ -51,6 +64,9 @@ namespace {
 constexpr float NEG = -3.0e38f;
 constexpr int THREADS = 128;
 constexpr int NCODE = 8;         // codes 0..7; 5 (padding) and above never match
+
+// Ablation flags of the body (F); kernels C and D take none.
+constexpr int NO_VGAP = 1, NO_DYNCOST = 2, NO_ROWLOAD = 4;
 
 // Tile widths: TJ = 2 * TOP - 1 columns in blocks of TOP, TOP/2, ..., 1.
 // The wrapper takes the narrowest of 15, 31 and 63 that holds the launch's
@@ -87,11 +103,11 @@ struct Shared {
 // columns (W a power of two).  A tile of tl columns runs the blocks whose
 // bit is set in tl, widest first, each fully unrolled: no cell carries a
 // bound check, which would cut the row into one basic block a cell.
-template <int W>
+template <int W, int F>
 struct Tile {
     float pS[W];   // S at the previous row
     float cum[W];  // running max of B over the rows above
-    Tile<W / 2> rest;
+    Tile<W / 2, F> rest;
 
     __device__ __forceinline__ void init()
     {
@@ -104,38 +120,42 @@ struct Tile {
     }
 
     // One row of the tile's ordinary columns.  sL/hL: S and H of the
-    // column to the left at this row; diag: its S at the row above.
+    // column to the left at this row; diag: its S at the row above; crow:
+    // the row's cost under NO_DYNCOST.
     __device__ __forceinline__ void row(
-        int tl, const int* kr, const char* tab, float go, float ge, float rge,
+        int tl, const int* kr, const char* tab, float crow, float go, float ge, float rge,
         float rge1, float& sL, float& hL, float& diag)
     {
+        constexpr bool vgap = !(F & NO_VGAP);
         if (tl & W) {
 #pragma unroll
             for (int jj = 0; jj < W; ++jj) {
-                const float cost = *reinterpret_cast<const float*>(tab + kr[jj]);
+                const float cost = (F & NO_DYNCOST) ? crow
+                                                    : *reinterpret_cast<const float*>(tab + kr[jj]);
                 const float Hn = fmaxf(sL - go, hL - ge);
                 const float M = diag + cost;
                 const float mv = fmaxf(M, Hn);
                 const float V = cum[jj] - rge1;
                 const float B = (mv - go) + rge;
-                const float s = fmaxf(mv, V);
+                const float s = vgap ? fmaxf(mv, V) : mv;
                 diag = pS[jj];
                 pS[jj] = s;
-                cum[jj] = fmaxf(cum[jj], B);
+                if (vgap) cum[jj] = fmaxf(cum[jj], B);
                 sL = s;
                 hL = Hn;
             }
             kr += W;
         }
-        rest.row(tl, kr, tab, go, ge, rge, rge1, sL, hL, diag);
+        rest.row(tl, kr, tab, crow, go, ge, rge, rge1, sL, hL, diag);
     }
 };
 
-template <>
-struct Tile<0> {
+template <int F>
+struct Tile<0, F> {
     __device__ __forceinline__ void init() {}
     __device__ __forceinline__ void row(
-        int, const int*, const char*, float, float, float, float, float&, float&, float&) {}
+        int, const int*, const char*, float, float, float, float, float, float&, float&,
+        float&) {}
 };
 
 __device__ __forceinline__ int cost_slot(
@@ -157,13 +177,14 @@ __device__ __forceinline__ uint64_t global_ns()
 // modes/mask[0, rlen).  Returns S at row len after the last column
 // (column 0's value when rlen == 0).  bS/bH: the tile hand-off slot
 // ([l1, n_pad] each), needed only when the ordinary columns exceed TJ.
-template <int TOP>
+// F: ablation flags; row_mask is read only under NO_ROWLOAD.
+template <int TOP, int F = 0>
 __device__ float score_one(
     Shared<TOP>& sh, int n, int len, const int32_t* __restrict__ modes,
     const int32_t* __restrict__ mask, int rlen, bool local, float go, float ge,
     const float* __restrict__ costm, const float* __restrict__ costmm,
     const int32_t* __restrict__ codes_k, int n_pad, size_t plane,
-    float* __restrict__ bS, float* __restrict__ bH)
+    float* __restrict__ bS, float* __restrict__ bH, int row_mask = 0)
 {
     constexpr int TJ = Shared<TOP>::TJ;
     const int tid = threadIdx.x;
@@ -185,7 +206,7 @@ __device__ float score_one(
         __syncthreads();
         int need = 0;
         const int ncol = tl + (zv ? 1 : 0);  // the peeled column goes to koff[c][TJ]
-        for (int e = tid; e < NCODE * ncol; e += THREADS) {
+        for (int e = tid; !(F & NO_DYNCOST) && e < NCODE * ncol; e += THREADS) {
             const int c = e / ncol, q = e % ncol;
             const int k = cost_slot(modes, mask, q < tl ? j0 + q : rlen - 1, c);
             need |= 1 << k;
@@ -193,10 +214,10 @@ __device__ float score_one(
         }
         if (need) atomicOr(&sh.need, need);
         __syncthreads();
-        need = sh.need;
+        need = (F & NO_DYNCOST) ? 0 : sh.need;
         if (len < 0) continue;
 
-        Tile<TOP> cols;
+        Tile<TOP, F> cols;
         cols.init();
         float cumZ = NEG;  // the peeled column's running max
         float dL = NEG;    // S(i-1) of the column left of the tile
@@ -225,25 +246,28 @@ __device__ float score_one(
             dL = sL;
 
             const int* kr = sh.koff[min((unsigned)code_nx, (unsigned)NCODE - 1)];
+            const float crow = code_nx == 1 ? -0.1f : -1.0f;  // NO_DYNCOST's cost
 #pragma unroll
             for (int k = 0; k < 8; ++k)
                 if ((need >> k) & 1) sh.tab[k][tid] = v_nx[k];
             if (i < len) {  // prefetch row i + 1
-                const size_t nx = at + n_pad;
+                const size_t nx = (F & NO_ROWLOAD) ? (size_t)((i + 1) & row_mask) * n_pad + n
+                                                   : at + n_pad;
                 code_nx = codes_k[nx];
 #pragma unroll
                 for (int k = 0; k < 8; ++k)
                     if ((need >> k) & 1) v_nx[k] = (k < 4 ? costm : costmm)[(k & 3) * plane + nx];
             }
 
-            cols.row(tl, kr, tab, go, ge, rge, rge1, sL, hL, diag);
+            cols.row(tl, kr, tab, crow, go, ge, rge, rge1, sL, hL, diag);
             if (zv) {  // the peeled last column: V carries no ramp, B = mv
-                const float cost = *reinterpret_cast<const float*>(tab + kr[TJ]);
+                const float cost = (F & NO_DYNCOST) ? crow
+                                                    : *reinterpret_cast<const float*>(tab + kr[TJ]);
                 const float Hn = fmaxf(sL - go, hL - ge);
                 const float mv = fmaxf(diag + cost, Hn);
-                sL = fmaxf(mv, cumZ);
+                sL = (F & NO_VGAP) ? mv : fmaxf(mv, cumZ);
                 hL = Hn;
-                cumZ = fmaxf(cumZ, mv);
+                if (!(F & NO_VGAP)) cumZ = fmaxf(cumZ, mv);
             }
             if (!last) {  // hand the tile's last column to the next tile
                 bS[at] = sL;
@@ -275,26 +299,83 @@ __device__ __forceinline__ void stamp(uint64_t* stamps, int at, uint64_t t0)
     }
 }
 
-template <int TOP>
+// Kernel C (F = 0) and the ablation variants (csrc/score_ablation.cu).
+template <int TOP, int F>
 __global__ void __launch_bounds__(THREADS, min_blocks(TOP)) score_kernel(
     const int32_t* __restrict__ modes, const int32_t* __restrict__ mask,
     int rlen, float go, float ge, int local,
     const float* __restrict__ costm, const float* __restrict__ costmm,
     const int32_t* __restrict__ codes_k, const int32_t* __restrict__ lengths,
     int n, int l1, int n_pad, float* __restrict__ scratch,
-    float* __restrict__ out, uint64_t* __restrict__ stamps)
+    float* __restrict__ out, uint64_t* __restrict__ stamps, int row_mask)
 {
     __shared__ Shared<TOP> sh;
     const uint64_t t0 = stamps ? global_ns() : 0;
     const int t = blockIdx.x * THREADS + threadIdx.x;
     const size_t plane = (size_t)l1 * n_pad;
     const int len = t < n ? clamp_len(lengths[t], l1) : -1;
-    const float s = score_one(
+    const float s = score_one<TOP, F>(
         sh, t, len, modes, mask, rlen, local != 0, go, ge, costm, costmm,
-        codes_k, n_pad, plane, scratch, scratch ? scratch + plane : nullptr);
+        codes_k, n_pad, plane, scratch, scratch ? scratch + plane : nullptr, row_mask);
     if (t < n) out[t] = s;
     stamp(stamps, blockIdx.x, t0);
 }
+
+// score_kernel<., F> at tile width tj (15, 31 or 63), or null.
+template <int F>
+const void* score_kernel_for(int tj)
+{
+    switch (tj) {
+    case 15: return (const void*)score_kernel<8, F>;
+    case 31: return (const void*)score_kernel<16, F>;
+    case 63: return (const void*)score_kernel<32, F>;
+    default: return nullptr;
+    }
+}
+
+// Launch score_kernel<., F>: a CUDA error code (0 on success); a tile width
+// other than 15, 31 or 63 is refused (cudaErrorInvalidValue).
+template <int F>
+int launch_score(
+    const int32_t* modes, const int32_t* mask, int rlen, float go, float ge,
+    int local, const float* costm, const float* costmm, const int32_t* codes_k,
+    const int32_t* lengths, int n, int l1, int n_pad, int tj, float* scratch,
+    float* out, uint64_t* stamps, int row_mask, void* stream)
+{
+    const void* fn = score_kernel_for<F>(tj);
+    if (!fn) return (int)cudaErrorInvalidValue;
+    if (n <= 0 || l1 <= 0) return 0;
+    void* args[] = {&modes, &mask, &rlen, &go, &ge, &local, &costm, &costmm, &codes_k,
+                    &lengths, &n, &l1, &n_pad, &scratch, &out, &stamps, &row_mask};
+    const dim3 grid((n + THREADS - 1) / THREADS);
+    return (int)cudaLaunchKernel(fn, grid, dim3(THREADS), args, 0, (cudaStream_t)stream);
+}
+
+// A kernel's resources: out[0..4] = registers a thread, static shared
+// bytes a block, local (spill) bytes a thread, resident blocks an SM,
+// threads a block.
+int kernel_attrs(const void* fn, int* out)
+{
+    if (!fn) return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes a;
+    cudaError_t err = cudaFuncGetAttributes(&a, fn);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = a.numRegs;
+    out[1] = (int)a.sharedSizeBytes;
+    out[2] = (int)a.localSizeBytes;
+    out[3] = blocks;
+    out[4] = THREADS;
+    return 0;
+}
+
+}  // namespace
+
+#ifndef SCORE_BODY_ONLY
+
+namespace {
 
 // seg_i [nseg, 4] = (start, rlen, local, scratch slot or -1; segments
 // run concurrently, so each wide one of a launch has its own slot); seg_f
@@ -326,10 +407,11 @@ __global__ void __launch_bounds__(THREADS, min_blocks(TOP)) segments_kernel(
 // The instantiation of tile width tj (15, 31 or 63), or null.
 const void* kernel_for(int which, int tj)
 {
+    if (which == 0) return score_kernel_for<0>(tj);
     switch (tj) {
-    case 15: return which == 0 ? (const void*)score_kernel<8> : (const void*)segments_kernel<8>;
-    case 31: return which == 0 ? (const void*)score_kernel<16> : (const void*)segments_kernel<16>;
-    case 63: return which == 0 ? (const void*)score_kernel<32> : (const void*)segments_kernel<32>;
+    case 15: return (const void*)segments_kernel<8>;
+    case 31: return (const void*)segments_kernel<16>;
+    case 63: return (const void*)segments_kernel<32>;
     default: return nullptr;
     }
 }
@@ -345,13 +427,8 @@ extern "C" int sarlacc_score_kernel(
     const int32_t* lengths, int n, int l1, int n_pad, int tj, float* scratch,
     float* out, uint64_t* stamps, void* stream)
 {
-    const void* fn = kernel_for(0, tj);
-    if (!fn) return (int)cudaErrorInvalidValue;
-    if (n <= 0 || l1 <= 0) return 0;
-    void* args[] = {&modes, &mask, &rlen, &go, &ge, &local, &costm, &costmm, &codes_k,
-                    &lengths, &n, &l1, &n_pad, &scratch, &out, &stamps};
-    const dim3 grid((n + THREADS - 1) / THREADS);
-    return (int)cudaLaunchKernel(fn, grid, dim3(THREADS), args, 0, (cudaStream_t)stream);
+    return launch_score<0>(modes, mask, rlen, go, ge, local, costm, costmm, codes_k, lengths,
+                           n, l1, n_pad, tj, scratch, out, stamps, 0, stream);
 }
 
 extern "C" int sarlacc_segments_kernel(
@@ -374,18 +451,7 @@ extern "C" int sarlacc_segments_kernel(
 // (spill) bytes a thread, resident blocks an SM, threads a block.
 extern "C" int sarlacc_score_attrs(int which, int tj, int* out)
 {
-    const void* fn = kernel_for(which, tj);
-    if (!fn) return (int)cudaErrorInvalidValue;
-    cudaFuncAttributes a;
-    cudaError_t err = cudaFuncGetAttributes(&a, fn);
-    if (err != cudaSuccess) return (int)err;
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS, 0);
-    if (err != cudaSuccess) return (int)err;
-    out[0] = a.numRegs;
-    out[1] = (int)a.sharedSizeBytes;
-    out[2] = (int)a.localSizeBytes;
-    out[3] = blocks;
-    out[4] = THREADS;
-    return 0;
+    return kernel_attrs(kernel_for(which, tj), out);
 }
+
+#endif  // SCORE_BODY_ONLY

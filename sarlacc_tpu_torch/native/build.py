@@ -8,8 +8,9 @@ Two kinds of shared object land in ``sarlacc_tpu_torch/_build/``:
   compiled by ``nvcc`` for ``sm_90a`` with a plain C interface and called
   through ctypes (no PyTorch headers, so a build takes seconds).
 
-The cache key is a hash of the sources and the full command line, so a
-changed flag rebuilds.  Builds write to a per-thread temporary name and
+The cache key is a hash of the sources (a kernel's source and every file
+it includes by a quoted path) and the full command line, so a changed
+flag or header rebuilds.  Builds write to a per-thread temporary name and
 rename into place, so concurrent builds never load a half-written file.
 """
 
@@ -18,13 +19,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 
 __all__ = [
     "BUILD_DIR", "CSRC_DIR", "build_library", "check_tensor", "CudaKernel", "kernel_resources",
-    "nvcc_path",
+    "local_sources", "nvcc_path",
 ]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,6 +42,7 @@ NVCC_FLAGS = (
 )
 
 _LOCK = threading.Lock()
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def build_library(name: str, sources: list[str], command: list[str]) -> str:
@@ -62,6 +65,20 @@ def build_library(name: str, sources: list[str], command: list[str]) -> str:
         )
     os.replace(tmp, so)
     return so
+
+
+def local_sources(source: str) -> list[str]:
+    """``source`` and every file it includes by a quoted path, transitively
+    (paths relative to the including file, as nvcc resolves them)."""
+    found, todo = [], [source]
+    while todo:
+        path = os.path.normpath(todo.pop())
+        if path in found:
+            continue
+        found.append(path)
+        with open(path) as fh:
+            todo += [os.path.join(os.path.dirname(path), inc) for inc in _INCLUDE.findall(fh.read())]
+    return found
 
 
 def nvcc_path() -> str:
@@ -110,7 +127,7 @@ class CudaKernel:
 
     def build(self) -> str:
         name = os.path.splitext(os.path.basename(self.source))[0]
-        return build_library(name, [self.source], self.command(nvcc_path()))
+        return build_library(name, local_sources(self.source), self.command(nvcc_path()))
 
     def function(self, symbol: str, argtypes: list):
         """Another ``int``-returning C function of the same library (not a

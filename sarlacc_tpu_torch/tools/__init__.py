@@ -8,7 +8,8 @@ arguments and defaults:
 * :mod:`.profile_demux` (``scripts/profile_demux_tpu.py``): the demux score
   path split into stages (upload, planes, kernel C, readback, barcodes);
 * :mod:`.score_ablation` (``scripts/microbench_score_ablation.py``): kernel
-  C with its row state, cost-plane reads or vertical-gap max ablated;
+  C's own body with its vertical-gap max, its per-cell cost reads or its
+  per-row loads ablated;
 * :mod:`.op_mix` (``scripts/microbench_op_mix.py``): dependent chains per
   instruction class, and the ALU ceilings of the score DP's cell bodies;
 * :mod:`.op_rates` (``scripts/microbench_vpu_ops.py``): independent chains

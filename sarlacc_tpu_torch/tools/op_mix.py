@@ -16,8 +16,10 @@ every SM (``csrc/op_rates.cu``, entries ``sarlacc_op_mix_*``):
 * ``shift-stage(3op)``: ``max(lane < sh ? NEG : shfl_up(x, sh), b)`` with
   ``sh = 1 << s % 5``, 3 ops: one stage of a warp's log-shift prefix max.
 
-It prints ops/s per class and the ALU ceilings of kernels C and D's
-row-tile body, the ablation's column body and a warp-split body from their
+It prints ops/s per class and, on the card, each class's share of its own
+issue ceiling (:data:`MIX_PIPES`, :func:`.op_rates.issue_ceiling`), and
+the ALU ceilings of kernels C and D's row-tile body, of the column-outer
+body kernel C ran before its row tiles and of a warp-split body from their
 censuses (:data:`.op_rates.BODIES`), instead of the TPU script's 45 slots.
 """
 
@@ -31,12 +33,13 @@ import torch
 from ..device import resolve_device
 from ..native.build import CudaKernel
 from .op_rates import (
-    BODIES, SELECTS, _check_chain_inputs, _f32, census_of,
-    chain_inputs, grid_rows, lane_shift_up, require_ops, sass_census,
+    BODIES, PEAK_F32, SELECTS, _check_chain_inputs, _f32, census_of,
+    chain_inputs, grid_rows, issue_shares, lane_shift_up, require_ops, sass_census,
 )
 from .timing import device_label, event_ms
 
-__all__ = ["CLASSES", "KERNELS", "check", "measure", "op_mix", "op_mix_kernel", "op_mix_plain"]
+__all__ = ["CLASSES", "KERNELS", "MIX_PIPES", "check", "measure", "op_mix", "op_mix_kernel",
+           "op_mix_plain"]
 
 ITERS = 2048
 DEPTH = 16
@@ -56,6 +59,17 @@ _I = ctypes.c_int
 KERNELS = {
     cls: CudaKernel("op_rates.cu", f"sarlacc_op_mix_{entry}", [_P, _P, _P, _P, _I, _I, _P])
     for cls, (entry, _) in CLASSES.items()
+}
+
+#: Instructions by pipe of one iteration of each class (``DEPTH`` steps and
+#: the iteration's add; the select predicates depend only on the lane and
+#: the step, so they leave the loop) and the ops it counts
+#: (:func:`.op_rates.issue_ceiling`).
+MIX_PIPES = {
+    "elementwise": {"fadd": DEPTH + 1, "alu": DEPTH, "ops": 2 * DEPTH + 1},
+    "select+add": {"fadd": DEPTH + 1, "alu": DEPTH, "ops": 2 * DEPTH + 1},
+    "shift+max": {"shfl": DEPTH, "alu": DEPTH, "fadd": 1, "ops": 2 * DEPTH + 1},
+    "shift-stage(3op)": {"shfl": DEPTH, "alu": 2 * DEPTH, "fadd": 1, "ops": 3 * DEPTH + 1},
 }
 
 #: Opcodes each class must show at least DEPTH times (see op_rates.require_ops).
@@ -150,7 +164,7 @@ def check(device=None, iters: int = 4, reps: int = 3) -> dict:
         out[cls] = {
             "max_abs_err": float((got - want).abs().max()),
             "ms": event_ms(lambda: op_mix_kernel(cls, a, b1, b2, iters), reps, dev),
-            "plain_ms": event_ms(lambda: op_mix_plain(cls, a, b1, b2, iters), 1, dev),
+            "plain_ms": event_ms(lambda: op_mix_plain(cls, a, b1, b2, iters), 1, dev, warmup=False),
             "iters": iters, "sass_checked": census is not None,
         }
     return out
@@ -183,6 +197,12 @@ def measure(device=None, iters: int = ITERS, reps: int = 5,
         out["classes"][cls] = {"ms": ms, "rate": rate}
         log(f"[op_mix] {cls:>16}: {ms:8.3f} ms {clock}  {rate:.4e} ops/s")
     rates = {cls: v["rate"] for cls, v in out["classes"].items()}
+    sms, sm_clock, shares = issue_shares(rates, MIX_PIPES, dev)
+    for cls, (ceil, share) in shares.items():
+        out["classes"][cls].update(issue_ceiling=ceil, issue_share=share)
+        log(f"[op_mix] {cls:>16}: issue ceiling {ceil:.4e} ops/s ({sms} SMs x "
+            f"{sm_clock / 1e6:.0f} MHz), {100 * share:.1f}% of it; "
+            f"{100 * rates[cls] / PEAK_F32:.1f}% of the 67 TFLOP/s float32 peak")
     for name, cen in BODIES:
         g = mix_ceiling(cen, rates) / 1e9
         out[f"{name} ceiling GCUPS"] = g

@@ -13,12 +13,14 @@ counterparts ``shfl1`` (``__shfl_up_sync`` by 1, then an add) and
 the TPU script, which runs one (256, 128) tile on one core, the grid fills
 every SM.
 
-It prints ops/s per class, a shuffle's cost in add slots (the script's
-``pair_cost``), and the ALU ceiling in GCUPS of kernels C and D's row-tile
-body, of the column-outer body the ablation keeps and of a warp-split
-column body, from their op censuses (:data:`BODIES`).  Before timing, each
-kernel is held bit for bit against :func:`op_rates_plain` at a reduced
-iteration count, and the built library's instructions are counted
+It prints ops/s per class and, on the card, each class's share of its own
+issue ceiling (:func:`issue_ceiling`: the instruction's results a clock an
+SM x SMs x the SM clock); a shuffle's cost in add slots (the script's
+``pair_cost``); and the ALU ceiling in GCUPS of kernels C and D's row-tile
+body, of the column-outer body kernel C ran before its row tiles and of a
+warp-split column body, from their op censuses (:data:`BODIES`).  Before
+timing, each kernel is held bit for bit against :func:`op_rates_plain` at a
+reduced iteration count, and the built library's instructions are counted
 (:func:`sass_census`) to show the chains did not fold.
 """
 
@@ -38,8 +40,9 @@ from ..native.build import CudaKernel, check_tensor, nvcc_path
 from .timing import device_label, event_ms
 
 __all__ = [
-    "BODIES", "CLASSES", "COLUMN_BODY_CENSUS", "KERNELS", "ROW_TILE_CENSUS", "WARP_SPLIT_CENSUS",
-    "chain_inputs", "grid_rows",
+    "ABLATION_CENSUS", "BODIES", "CLASSES", "COLUMN_BODY_CENSUS", "ISSUE_PER_SM_CLOCK",
+    "KERNELS", "PEAK_F32", "RATE_MIX", "ROW_TILE_CENSUS", "WARP_SPLIT_CENSUS",
+    "chain_inputs", "grid_rows", "issue_ceiling", "issue_shares", "max_sm_clock_hz",
     "check", "lane_shift_up", "measure", "op_rates", "op_rates_kernel", "op_rates_plain",
     "sass_census",
 ]
@@ -64,14 +67,15 @@ KERNELS = {
     for cls in CLASSES
 }
 
-#: Per-cell ops of the column-outer score body (one thread per read walking
-#: the columns, S and H in device-memory planes), counted from its source,
-#: ``csrc/score_ablation.cu``'s ``full`` cell: add/sub/mul 10 (``Hn`` 2,
-#: ``M`` 1, ``V`` 4 with the int-to-float of the row, ``B`` 3), max 4
-#: (``Hn``, ``mv``, ``out``, ``cum``), select 3 (the cost plane, and ``V``
-#: and ``B`` on the free-gap column), int 5 (the cost bit's shift and mask,
-#: the address, the loop's increment and compare), loads 4, stores 2,
-#: shuffles 0.
+#: Per-cell ops of the column-outer score body, kernel C's design before
+#: its row tiles (one thread per read walking the columns, S and H read and
+#: written in [l1, n_pad] device-memory planes every cell; no longer in the
+#: tree), counted from that source's cell: add/sub/mul 10 (``Hn`` 2, ``M``
+#: 1, ``V`` 4 with the int-to-float of the row, ``B`` 3), max 4 (``Hn``,
+#: ``mv``, ``out``, ``cum``), select 3 (the cost plane, and ``V`` and ``B``
+#: on the free-gap column), int 5 (the cost bit's shift and mask, the
+#: address, the loop's increment and compare), loads 4, stores 2, shuffles
+#: 0.
 COLUMN_BODY_CENSUS = {"add": 10, "max": 4, "select": 3, "int": 5, "load": 4, "store": 2, "shuffle": 0}
 #: Per-cell ops of kernels C and D's row-tile cell (``csrc/score_kernel.cu``,
 #: ``Tile::row``): add/sub 6 (``Hn`` 2, ``M`` 1, ``V`` 1, ``B`` 2), max 4,
@@ -88,12 +92,47 @@ WARP_SPLIT_CENSUS = {
     **COLUMN_BODY_CENSUS, "max": 4 + 5, "select": 3 + 5 + 2, "shuffle": 5 + 2,
 }
 
+#: Per-cell ops of each variant of ``tools/score_ablation.py`` (kernel C's
+#: row-tile cell with its flags): ``no-vgap`` drops ``V``, ``B`` and their
+#: two maxes (3 adds, 2 maxes); ``no-dyncost`` takes its cost once a row,
+#: so no shared load and no address a cell; ``no-rowload`` changes only the
+#: per-row fetch.  The float ops (add + max) are what ``chip_smoke.py``
+#: bounds each variant by.
+ABLATION_CENSUS = {
+    "full": ROW_TILE_CENSUS,
+    "no-vgap": {**ROW_TILE_CENSUS, "add": 3, "max": 2},
+    "no-dyncost": {**ROW_TILE_CENSUS, "int": 0, "load": 0},
+    "neither": {**ROW_TILE_CENSUS, "add": 3, "max": 2, "int": 0, "load": 0},
+    "no-rowload": ROW_TILE_CENSUS,
+}
+
 #: The bodies whose ALU ceilings the tools print: (label, census).
 BODIES = (
     ("row-tile body (kernels C, D)", ROW_TILE_CENSUS),
-    ("column body (ablation full)", COLUMN_BODY_CENSUS),
+    ("column-outer body (kernel C's former design)", COLUMN_BODY_CENSUS),
     ("warp-split column body", WARP_SPLIT_CENSUS),
 )
+
+#: Results a clock an SM of compute capability 9.0 by pipe (the CUDA C++
+#: Programming Guide's arithmetic-instruction throughput table): 32-bit
+#: float add 128; compare, minimum and maximum 64 (a select, which the
+#: table does not list, is taken at the same 64, as its measured rate
+#: equals max's); warp shuffle 32; and one warp instruction a clock from
+#: each of the four schedulers, 128 thread instructions in all.
+ISSUE_PER_SM_CLOCK = {"fadd": 128, "alu": 64, "shfl": 32, "dispatch": 128}
+#: The H100 SXM's published float32 rate outside the tensor cores (an FMA
+#: counted as two operations), ops/s.
+PEAK_F32 = 67e12
+
+#: Instructions by pipe of one counted op of each class: ``shfl1`` and
+#: ``shfl16`` count a shuffle and its add as one op.
+RATE_MIX = {
+    "add": {"fadd": 1},
+    "max": {"alu": 1},
+    "select": {"alu": 1},
+    "shfl1": {"shfl": 1, "fadd": 1, "ops": 1},
+    "shfl16": {"shfl": 1, "fadd": 1, "ops": 1},
+}
 
 
 def grid_rows(dev: torch.device) -> int:
@@ -249,6 +288,43 @@ RATE_OPS = {
 }
 
 
+def issue_ceiling(mix: dict, sms: int, clock_hz: float) -> float:
+    """Counted ops/s a class of instruction ``mix`` (instructions by pipe of
+    ``ops`` counted ops; ``ops`` defaults to the instructions) can issue at
+    most on ``sms`` SMs at ``clock_hz``: its busiest pipe, or the
+    schedulers' dispatch, sets the clocks an op takes (the pipes run side
+    by side)."""
+    instr = {k: v for k, v in mix.items() if k != "ops"}
+    ops = mix.get("ops", sum(instr.values()))
+    clocks = max(n / ISSUE_PER_SM_CLOCK[p] for p, n in
+                 [*instr.items(), ("dispatch", sum(instr.values()))])
+    return ops / clocks * sms * clock_hz
+
+
+def max_sm_clock_hz() -> float | None:
+    """The card's top SM clock (``nvidia-smi``'s ``clocks.max.sm``), Hz;
+    None where it cannot be read."""
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, check=True)
+        return float(smi.stdout.split()[0]) * 1e6
+    except (OSError, subprocess.CalledProcessError, ValueError, IndexError):
+        return None
+
+
+def issue_shares(rates: dict, mixes: dict, dev) -> tuple:
+    """(SMs, SM clock Hz, {class: (issue ceiling ops/s, measured rate's
+    share of it)}) for measured ``rates`` of classes with instruction
+    ``mixes``, at the card's top SM clock; (0, None, {}) off the card or
+    where the clock cannot be read."""
+    clock = max_sm_clock_hz() if dev.type == "cuda" else None
+    if clock is None:
+        return 0, None, {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ceil = {cls: issue_ceiling(mixes[cls], sms, clock) for cls in rates}
+    return sms, clock, {cls: (ceil[cls], rate / ceil[cls]) for cls, rate in rates.items()}
+
+
 def pair_cost(pair_rate: float, add_rate: float) -> float:
     """Seconds per shuffle from a shuffle+add pair's rate (the script's
     ``pair_cost``): 2/pair - 1/add, floored just above zero."""
@@ -274,7 +350,8 @@ def check(device=None, iters: int = 4, reps: int = 3) -> dict:
     """Every class's kernel against :func:`op_rates_plain` on the card at
     ``iters`` iterations, bit for bit, and its instructions counted
     (:func:`sass_census`).  Returns, per class, max |diff| and the kernel's
-    and the plain version's ms at that size."""
+    and the plain version's ms at that size (the plain version's from one
+    call, no warm-up)."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("op_rates.check compares the kernels on the card")
@@ -294,7 +371,8 @@ def check(device=None, iters: int = 4, reps: int = 3) -> dict:
         out[cls] = {
             "max_abs_err": float((got - want).abs().max()),
             "ms": event_ms(lambda: op_rates_kernel(cls, a, b1, b2, iters, SELECT_LANES, SELECT_LANES), reps, dev),
-            "plain_ms": event_ms(lambda: op_rates_plain(cls, a, b1, b2, iters, m, m), 1, dev),
+            "plain_ms": event_ms(lambda: op_rates_plain(cls, a, b1, b2, iters, m, m), 1, dev,
+                                 warmup=False),
             "iters": iters, "sass_checked": census is not None,
         }
     return out
@@ -328,6 +406,12 @@ def measure(device=None, iters: int = ITERS, reps: int = 5,
         out["classes"][cls] = {"ms": ms, "rate": rate}
         log(f"[op_rates] {cls:>7}: {ms:8.3f} ms {clock}  {rate:.4e} ops/s")
     rates = {cls: v["rate"] for cls, v in out["classes"].items()}
+    sms, sm_clock, shares = issue_shares(rates, RATE_MIX, dev)
+    for cls, (ceil, share) in shares.items():
+        out["classes"][cls].update(issue_ceiling=ceil, issue_share=share)
+        log(f"[op_rates] {cls:>7}: issue ceiling {ceil:.4e} ops/s ({sms} SMs x "
+            f"{sm_clock / 1e6:.0f} MHz), {100 * share:.1f}% of it; "
+            f"{100 * rates[cls] / PEAK_F32:.1f}% of the 67 TFLOP/s float32 peak")
     r_add = rates["add"]
     out["shfl1_slots"] = pair_cost(rates["shfl1"], r_add) * r_add
     out["shfl16_slots"] = pair_cost(rates["shfl16"], r_add) * r_add

@@ -1,4 +1,4 @@
-"""Attribute the column-outer score DP's time on the card by ablation.
+"""Attribute kernel C's time on the card by ablation.
 
     python -m sarlacc_tpu_torch.tools.score_ablation [N] [L] [R]
 
@@ -6,24 +6,32 @@ Counterpart of ``scripts/microbench_score_ablation.py`` (``_kernel_ablate``
 launched by ``_launch``, ``pallas_call`` :123), with its defaults (N =
 100 000 reads, L = 250, R = 51 columns, numpy seed 0, random planes as
 its :149-157, gap open 4 + extension 1, global mode).  Each variant is
-the column-outer per-read DP (one thread per read walking the columns,
-S and H read and written in device-memory planes every cell) with one
-suspect removed, at the same launch shape (``csrc/score_ablation.cu``).
-Kernel C runs rows outer inside register tiles (``csrc/score_kernel.cu``),
-the design these answers point to; both designs give the same bits:
+kernel C itself (``csrc/score_kernel.cu``'s ``score_kernel`` template,
+rows outer inside register tiles of columns) built with one suspect of
+its cell body removed, at C's launch shape: 128 threads a block, one read
+a thread, C's tile width for R and C's hand-off scratch beyond one tile
+(``csrc/score_ablation.cu``).  So the shares attribute kernel C as it
+runs:
 
-* ``full``: the column-outer body, its scores equal to kernel C's;
-* ``no-vgap``: the running vertical-gap max dropped (the TPU's
-  ``no-prefix``, whose log-shift scan is this running max here);
-* ``no-dyncost``: a constant cost, no cost-plane loads;
+* ``full``: kernel C, bit for bit;
+* ``no-vgap``: the columns' running vertical-gap max dropped, S = max(M,
+  H) (the TPU's ``no-prefix``, whose log-shift scan is this running max
+  here): 3 of a cell's 6 adds and 2 of its 4 maxes;
+* ``no-dyncost``: one cost a row from the read's code, -0.1 where it is 1
+  else -1.0 (the JAX ablation's constant), instead of the cell's two
+  shared-memory loads; no cost slot is fetched;
 * ``neither``: both;
-* ``no-state``: S and H read and written at row 0's address, so the
-  row-state loads and stores hit L1 (replaces the TPU's ``half-prefix``,
-  a sublane-packing study with no meaning on the card).
+* ``no-rowload``: every row's code and cost slots fetched from row 0, so
+  the loads stay but hit L1: kernel C's only device-memory traffic (a
+  code and 2-8 costs a row) taken off the card's memory (replaces the
+  TPU's ``half-prefix``, a sublane-packing study with no meaning here).
 
-It prints ms and GCUPS per variant and each variant's time as a share of
-``full``.  Every variant is first held bit for bit against
-:func:`ablated_scores_plain`, and ``full`` against kernel C.
+It prints, per variant, ms, GCUPS, its time as a share of ``full``, its
+registers, spill bytes and resident blocks an SM (a variant that frees
+registers can hold more blocks) and its SASS instruction count at the
+launch's tile width.  On the card every variant is first held bit for
+bit against :func:`ablated_scores_plain`, and ``full`` against kernel C,
+also in time (:func:`check`).
 """
 
 from __future__ import annotations
@@ -35,22 +43,32 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..native.build import CudaKernel, check_tensor
+from ..native.build import CudaKernel, check_tensor, kernel_resources
 from ..ops.align import NEG_INF_F32, _column0, _shift_down, dp_scores
-from ..ops.cuda_align import _gap_pair, plane_dims, score_kernel
-from .timing import device_label, event_ms
+from ..ops.cuda_align import (
+    _gap_pair, _ordinary, _ptr, _scratch, plane_dims, score_kernel, score_tile,
+)
+from .timing import device_label, event_ms, queued_ms
 
-__all__ = ["KERNELS", "VARIANTS", "ablated_scores", "ablated_scores_plain", "ablation_kernel",
+__all__ = ["KERNELS", "NO_DYNCOST", "NO_ROWLOAD", "NO_VGAP", "VARIANTS", "ablated_scores",
+           "ablated_scores_plain", "ablation_kernel", "ablation_resources", "ablation_sass",
            "check", "make_inputs", "measure"]
 
-#: Variant -> (no_vgap, no_dyncost, no_state).
+#: Ablation flags, as ``csrc/score_kernel.cu`` defines them.
+NO_VGAP, NO_DYNCOST, NO_ROWLOAD = 1, 2, 4
+
+#: Variant -> its ablation flags.
 VARIANTS = {
-    "full": (False, False, False),
-    "no-vgap": (True, False, False),
-    "no-dyncost": (False, True, False),
-    "neither": (True, True, False),
-    "no-state": (False, False, True),
+    "full": 0,
+    "no-vgap": NO_VGAP,
+    "no-dyncost": NO_DYNCOST,
+    "neither": NO_VGAP | NO_DYNCOST,
+    "no-rowload": NO_ROWLOAD,
 }
+
+#: Most |full / kernel C - 1| :func:`check` accepts in time: ``full`` is
+#: kernel C's own code.
+TIME_TOLERANCE = 0.05
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,7 +78,7 @@ _F = ctypes.c_float
 KERNELS = {
     v: CudaKernel(
         "score_ablation.cu", f"sarlacc_ablate_{v.replace('-', '_')}",
-        [_P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+        [_P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
     )
     for v in VARIANTS
 }
@@ -109,76 +127,35 @@ def _columns_plain(no_vgap, no_dyncost, modes, mask, go, ge, costm, costmm, code
     return S
 
 
-def _no_state_plain(modes, mask, go, ge, costm, costmm, codes_k, lengths, local):
-    """The ``no-state`` variant row by row, as each thread runs it: one S
-    and one H cell per read, rewritten by every row; rows past a read's
-    length leave them alone.  Returns the scores [N]."""
-    l1 = codes_k.shape[0]
-    N = int(lengths.shape[0])
-    dev = codes_k.device
-    f32 = torch.float32
-    neg = torch.tensor(NEG_INF_F32, dtype=f32, device=dev)
-    zero = torch.zeros((), dtype=f32, device=dev)
-    ln = lengths.to(torch.int64).clamp(0, l1 - 1)
-    last = int(ln.max()) if N else -1
-    s = torch.zeros(N, dtype=f32, device=dev)
-    for i in range(last + 1):
-        on = i <= ln
-        v = zero if (local or i == 0) else (-go) - (torch.tensor(float(i), dtype=f32, device=dev) - 1.0) * ge
-        s = torch.where(on, v, s)
-    out = s.clone()
-    h = torch.full((N,), NEG_INF_F32, dtype=f32, device=dev)
-    R = int(modes.shape[0])
-    for j, (m, mk) in enumerate(zip(modes.tolist(), mask.tolist())):
-        zero_vgap = local and j == R - 1
-        s_up = neg.expand(N)
-        cum = neg.expand(N)
-        for i in range(last + 1):
-            on = i <= ln
-            code = codes_k[i, :N]
-            sel = torch.bitwise_right_shift(torch.tensor(mk, dtype=torch.int32, device=dev), code) & 1
-            cost = torch.where(sel == 1, costm[m - 1, i, :N], costmm[m - 1, i, :N])
-            fi = torch.tensor(float(i), dtype=f32, device=dev)
-            s_old, h_old = s, h
-            Hn = torch.maximum(s_old - go, h_old - ge)
-            mv = torch.maximum(s_up + cost, Hn)
-            V = cum if zero_vgap else cum - (fi - 1.0) * ge
-            B = mv if zero_vgap else (mv - go) + fi * ge
-            res = torch.maximum(mv, V)
-            out = torch.where(on, res, out)
-            s = torch.where(on, res, s)
-            h = torch.where(on, Hn, h)
-            s_up = s_old
-            cum = torch.maximum(cum, B)
-    return out
-
-
 def ablated_scores_plain(variant, modes, mask, gap_open, gap_ext, costm, costmm, codes_k,
                          lengths, local=False):
     """Plain PyTorch version of one ablation kernel: scores f32 [N].
 
-    ``full`` is :func:`..ops.align.dp_scores` gathered at ``lengths``; the
-    other variants are its column DP with the same ablation, except
-    ``no-state``, whose rows chain through one cell and so run row by row.
+    ``full`` is :func:`..ops.align.dp_scores` gathered at ``lengths``;
+    ``no-rowload`` the same on planes whose every row is row 0; the other
+    variants are its column DP with the same ablation.
     """
-    no_vgap, no_dyncost, no_state = VARIANTS[variant]
-    dev = codes_k.device
-    go = torch.tensor(np.float32(gap_open) + np.float32(gap_ext), dtype=torch.float32, device=dev)
-    ge = torch.tensor(np.float32(gap_ext), dtype=torch.float32, device=dev)
+    flags = VARIANTS[variant]
+    if flags & NO_ROWLOAD:
+        costm, costmm, codes_k = (costm[:, :1].expand_as(costm), costmm[:, :1].expand_as(costmm),
+                                  codes_k[:1].expand_as(codes_k))
     N = int(lengths.shape[0])
     idx = lengths.to(torch.int64).clamp(0, codes_k.shape[0] - 1)[None, :]
-    if no_state:
-        return _no_state_plain(modes, mask, go, ge, costm, costmm, codes_k, lengths, local)
-    if variant == "full":
-        S = dp_scores(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, local)
+    if flags & (NO_VGAP | NO_DYNCOST):
+        dev = codes_k.device
+        go = torch.tensor(np.float32(gap_open) + np.float32(gap_ext), dtype=torch.float32, device=dev)
+        ge = torch.tensor(np.float32(gap_ext), dtype=torch.float32, device=dev)
+        S = _columns_plain(bool(flags & NO_VGAP), bool(flags & NO_DYNCOST), modes, mask, go, ge,
+                           costm, costmm, codes_k, local)
     else:
-        S = _columns_plain(no_vgap, no_dyncost, modes, mask, go, ge, costm, costmm, codes_k, local)
+        S = dp_scores(modes, mask, gap_open, gap_ext, costm, costmm, codes_k, local)
     return S[:, :N].gather(0, idx)[0]
 
 
 def ablation_kernel(variant, modes, mask, gap_open, gap_ext, costm, costmm, codes_k, lengths,
                     local=False):
-    """Launch one ablation kernel: scores f32 [N], kernel C's contract."""
+    """Launch one ablation kernel: scores f32 [N], kernel C's contract, at
+    kernel C's tile width and with its hand-off scratch."""
     dev = codes_k.device
     l1, n_pad = codes_k.shape
     R, N = int(modes.shape[0]), int(lengths.shape[0])
@@ -191,15 +168,37 @@ def ablation_kernel(variant, modes, mask, gap_open, gap_ext, costm, costmm, code
     check_tensor(codes_k, "codes_k", torch.int32, (l1, n_pad))
     check_tensor(lengths, "lengths", torch.int32, (N,))
     out = torch.empty(N, dtype=torch.float32, device=dev)
-    S = torch.empty((l1, n_pad), dtype=torch.float32, device=dev)
-    H = torch.empty_like(S)
+    tj = score_tile([(0, R, bool(local))])
+    scratch = _scratch(int(_ordinary(R, bool(local)) > tj), l1, n_pad, dev)
     go, ge = _gap_pair(gap_open, gap_ext)
     KERNELS[variant].launch(
         modes.data_ptr(), mask.data_ptr(), R, go, ge, int(bool(local)), costm.data_ptr(),
-        costmm.data_ptr(), codes_k.data_ptr(), lengths.data_ptr(), N, l1, n_pad,
-        S.data_ptr(), H.data_ptr(), out.data_ptr(), 0,
-        torch.cuda.current_stream(dev),
+        costmm.data_ptr(), codes_k.data_ptr(), lengths.data_ptr(), N, l1, n_pad, tj,
+        _ptr(scratch), out.data_ptr(), 0, torch.cuda.current_stream(dev),
     )
+    return out
+
+
+def ablation_resources(tj: int) -> dict:
+    """Each variant as compiled at tile width ``tj``, with the keys of
+    :func:`..ops.cuda_align.score_kernel_resources` (registers, spill
+    bytes, resident blocks an SM, occupancy)."""
+    fn = KERNELS["full"].function("sarlacc_ablation_attrs", [_I, _I, _P])
+    return {v: kernel_resources(fn, flags, tj) for v, flags in VARIANTS.items()}
+
+
+def ablation_sass(tj: int) -> dict:
+    """Each variant's SASS instruction count at tile width ``tj`` (the
+    built library through ``cuobjdump``); {} where the toolkit has none."""
+    from .op_rates import sass_census
+
+    census = sass_census(KERNELS["full"]) or {}
+    out = {}
+    for v, flags in VARIANTS.items():
+        tag = f"score_kernelILi{(tj + 1) // 2}ELi{flags}E"
+        found = [sum(c.values()) for name, c in census.items() if tag in name]
+        if found:
+            out[v] = found[0]
     return out
 
 
@@ -230,58 +229,84 @@ def make_inputs(N: int, L: int, R: int, device, seed: int = 0):
     )
 
 
-def check(args, reps: int = 3) -> dict:
+def check(args, local: bool = False, reps: int = 3, turns_reps: int = 10) -> dict:
     """Every variant's kernel against :func:`ablated_scores_plain` on the
     card, and ``full`` against kernel C, bit for bit, on ``args`` (from
-    :func:`make_inputs`).  Returns, per variant, max |diff| and the
-    kernel's and the plain version's ms."""
+    :func:`make_inputs`); then ``full`` and kernel C timed in turns (C,
+    full, full, C; ``turns_reps`` calls each queued behind a sleep), which
+    must agree within :data:`TIME_TOLERANCE`.  Returns, per variant, max
+    |diff| and the kernel's and the plain version's ms, and under
+    ``"kernel C"`` the two turn means."""
     dev = args[-1].device
     if dev.type != "cuda":
         raise ValueError("score_ablation.check compares the kernels on the card")
-    kc = score_kernel(*args, local=False)
-    if not torch.equal(ablation_kernel("full", *args), kc):
+    if not torch.equal(ablation_kernel("full", *args, local=local), score_kernel(*args, local=local)):
         raise AssertionError("ablation 'full' differs from kernel C")
     out = {}
     for variant in VARIANTS:
-        got = ablation_kernel(variant, *args)
-        want = ablated_scores_plain(variant, *args)
+        got = ablation_kernel(variant, *args, local=local)
+        want = ablated_scores_plain(variant, *args, local=local)
         torch.cuda.synchronize(dev)
         if not torch.equal(got, want):
             bad = int((got != want).sum())
             raise AssertionError(f"ablation {variant}: {bad} scores differ from the plain version")
         out[variant] = {
             "max_abs_err": float((got - want).abs().max()),
-            "ms": event_ms(lambda: ablation_kernel(variant, *args), reps, dev),
-            "plain_ms": event_ms(lambda: ablated_scores_plain(variant, *args), 1, dev, warmup=False),
+            "ms": event_ms(lambda: ablation_kernel(variant, *args, local=local), reps, dev),
+            "plain_ms": event_ms(lambda: ablated_scores_plain(variant, *args, local=local), 1, dev,
+                                 warmup=False),
         }
+    runs = {"kernel C": lambda: score_kernel(*args, local=local),
+            "full": lambda: ablation_kernel("full", *args, local=local)}
+    turns = {name: [] for name in runs}
+    for name in ("kernel C", "full", "full", "kernel C"):
+        turns[name].append(queued_ms(runs[name], turns_reps, dev))
+    c_ms, full_ms = (sum(turns[k]) / 2 for k in ("kernel C", "full"))
+    if abs(full_ms / c_ms - 1.0) > TIME_TOLERANCE:
+        raise AssertionError(f"ablation 'full' takes {full_ms:.4f} ms against kernel C's "
+                             f"{c_ms:.4f} ms (turns {turns}): more than "
+                             f"{100 * TIME_TOLERANCE:.0f}% apart")
+    out["kernel C"] = {"ms": c_ms, "full_ms": full_ms, "turns": turns}
     return out
 
 
 def measure(N: int = 100_000, L: int = 250, R: int = 51, device=None, reps: int = 5,
-            check_first: bool = True, args=None, log=print) -> dict:
+            check_first: bool = True, args=None, local: bool = False, log=print) -> dict:
     """Time every variant (after :func:`check` on the card, unless
-    ``check_first`` is off); ``args`` reuses inputs of :func:`make_inputs`."""
+    ``check_first`` is off); ``args`` reuses inputs of :func:`make_inputs`;
+    ``local`` runs fitting mode (default global, as the script)."""
     dev = resolve_device(device)
     log(f"[ablation] {device_label(dev)}")
     if args is None:
         args = make_inputs(N, L, R, dev)
-    cells = float(N) * L * R
-    log(f"[ablation] N={N} L={L} R={R} l1={args[4].shape[1]} global, {cells:.3e} cells")
+    N, R = int(args[-1].shape[0]), int(args[0].shape[0])
+    cells = float((args[-1].double() + 1).sum()) * R
+    tj = score_tile([(0, R, bool(local))])
+    log(f"[ablation] N={N} L={L} R={R} l1={args[4].shape[1]} {'fitting' if local else 'global'}, "
+        f"tile {tj}, {cells:.3e} cells")
     if check_first and dev.type == "cuda":
-        check(args)
-        log("[ablation] every variant equals its plain version; full equals kernel C")
+        c = check(args, local)["kernel C"]
+        log(f"[ablation] every variant equals its plain version; full equals kernel C, "
+            f"{c['full_ms']:.4f} ms against C's {c['ms']:.4f} ms in turns")
+    res = ablation_resources(tj) if dev.type == "cuda" else {}
+    for v, n in (ablation_sass(tj) if dev.type == "cuda" else {}).items():
+        res[v]["sass_instructions"] = n
     clock = "events" if dev.type == "cuda" else "host clock"
-    out: dict = {"N": N, "L": L, "R": R, "variants": {}}
+    out: dict = {"N": N, "L": L, "R": R, "local": bool(local), "tile": tj, "variants": {}}
     for variant in VARIANTS:
-        if not bool(torch.isfinite(ablated_scores(variant, *args)).all()):
+        if not bool(torch.isfinite(ablated_scores(variant, *args, local=local)).all()):
             raise AssertionError(f"ablation {variant}: non-finite scores")
-        ms = event_ms(lambda: ablated_scores(variant, *args), reps, dev)
-        out["variants"][variant] = {"ms": ms, "gcups": cells / (ms * 1e-3) / 1e9}
+        ms = event_ms(lambda: ablated_scores(variant, *args, local=local), reps, dev)
+        out["variants"][variant] = {"ms": ms, "gcups": cells / (ms * 1e-3) / 1e9,
+                                    **res.get(variant, {})}
     full_ms = out["variants"]["full"]["ms"]
     for variant, v in out["variants"].items():
         v["share_of_full"] = v["ms"] / full_ms
+        occ = (f"  {v['registers']} registers, {v['spill_bytes']} B spilled, "
+               f"{v['blocks_per_sm']} blocks an SM" if "registers" in v else "")
+        occ += f", {v['sass_instructions']} SASS instructions" if "sass_instructions" in v else ""
         log(f"[ablation] {variant:>10}: {v['ms']:8.3f} ms {clock}  {v['gcups']:7.1f} GCUPS  "
-            f"{100 * v['share_of_full']:6.1f}% of full")
+            f"{100 * v['share_of_full']:6.1f}% of full{occ}")
     return out
 
 

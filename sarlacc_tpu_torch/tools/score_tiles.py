@@ -1,6 +1,7 @@
 """Sweep kernels C and D's tile widths and register budgets on the card.
 
     python -m sarlacc_tpu_torch.tools.score_tiles [min_blocks ...]
+    python -m sarlacc_tpu_torch.tools.score_tiles --against ROOT
 
 ``csrc/score_kernel.cu`` is compiled at three tile widths (15, 31 and 63
 columns), each asking the compiler for a number of resident blocks an SM
@@ -20,11 +21,20 @@ that width serves, all on random 250-bp ends (numpy seed 0):
 
 Then the production build runs each launch at every width (a narrower one
 in several column tiles, through the hand-off scratch).  Every variant's
-scores must equal the production build's, bit for bit.  It needs the card.
+scores must equal the production build's, bit for bit.
+
+``--against ROOT`` (:func:`against`) instead holds this checkout's kernels
+C and D to another checkout's (ROOT holds a ``sarlacc_tpu_torch`` package,
+say a ``git archive`` of the parent commit): registers, spill bytes and
+resident blocks at each width, the SASS opcode counts of each kernel
+function (``cuobjdump``), and each case above timed in turns (ROOT, this,
+this, ROOT) with equal scores.  It needs the card.
 """
 
 from __future__ import annotations
 
+import os
+import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -41,7 +51,8 @@ from ..ops.cuda_align import (
 )
 from .timing import device_label, event_ms
 
-__all__ = ["PRODUCTION", "SWEEP", "make_cases", "measure", "variant_kernels"]
+__all__ = ["PRODUCTION", "SWEEP", "against", "make_cases", "measure", "sass_by_width",
+           "variant_kernels"]
 
 #: The production build's resident blocks an SM asked for at each width.
 PRODUCTION = {15: 7, 31: 4, 63: 3}
@@ -160,8 +171,77 @@ def measure(sweep=SWEEP, device=None, reps: int = 5, log=print) -> dict:
     return out
 
 
+_FUNCTION = re.compile(r"(score_kernel|segments_kernel)ILi(\d+)E")
+
+
+def sass_by_width(kernel) -> dict:
+    """``"C@63"`` (and so on) -> opcode counts of that kernel function in
+    ``kernel``'s built library (the ablation variants of a build are left
+    out); {} where the toolkit has no ``cuobjdump``."""
+    from .op_rates import sass_census
+
+    out = {}
+    for name, counts in (sass_census(kernel) or {}).items():
+        m = _FUNCTION.search(name)
+        if m and not re.search(r"ILi\d+ELi[1-9]", name):
+            out[f"{'C' if m.group(1) == 'score_kernel' else 'D'}@{2 * int(m.group(2)) - 1}"] = counts
+    return out
+
+
+def against(root: str, device=None, reps: int = 5, log=print) -> dict:
+    """This checkout's kernels C and D against ``root``'s, on the card:
+    resources and SASS opcode counts at each width (equal or listed), then
+    each case of :func:`make_cases` in turns (root, this, this, root), its
+    scores equal.  Returns ``{"resources": {key: (root's, this)}, "sass":
+    {key: (root's total, this total, differing opcodes)}, "ms": {case:
+    [4 turns]}}``."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("score_tiles.against compares compiled builds: it needs the card")
+    log(f"[score_tiles] {device_label(dev)}")
+    src = os.path.join(os.path.abspath(root), "sarlacc_tpu_torch", "csrc", "score_kernel.cu")
+    other = tuple(CudaKernel(src, k.symbol, k.argtypes) for k in (SCORE_KERNEL, SEGMENTS_KERNEL))
+    this = (SCORE_KERNEL, SEGMENTS_KERNEL)
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(other[0].build), pool.submit(SCORE_KERNEL.build)]:
+            job.result()
+    out: dict = {"resources": {}, "sass": {}, "ms": {}}
+    res = [score_kernel_resources(k[0]) for k in (other, this)]
+    sass = [sass_by_width(k[0]) for k in (other, this)]
+    for key in res[1]:
+        a, b = ({f: r[key][f] for f in ("registers", "spill_bytes", "blocks_per_sm")} for r in res)
+        out["resources"][key] = (a, b)
+        ca, cb = sass[0].get(key, {}), sass[1].get(key, {})
+        diff = {op: (ca.get(op, 0), cb.get(op, 0)) for op in sorted(set(ca) | set(cb))
+                if ca.get(op, 0) != cb.get(op, 0)}
+        out["sass"][key] = (sum(ca.values()), sum(cb.values()), diff)
+        log(f"[score_tiles] {key}: {root} {a}, this {b}"
+            f"{' (equal)' if a == b else ' (DIFFERENT)'}; SASS {sum(ca.values())} / "
+            f"{sum(cb.values())} instructions, "
+            + ("opcode counts equal" if not diff else f"differing opcodes {diff}")
+            + ("" if ca else " (no cuobjdump listing)"))
+    for name, (kind, args, cells) in make_cases(dev).items():
+        tj = _width(kind, args)
+        want = _run(kind, args, other, tj)
+        got = _run(kind, args, this, tj)
+        torch.cuda.synchronize(dev)
+        if not torch.equal(got, want):
+            raise AssertionError(f"score_tiles {name}: this checkout's scores differ from {root}'s")
+        turns = [event_ms(lambda: _run(kind, args, k, tj), reps, dev)
+                 for k in (other, this, this, other)]
+        out["ms"][name] = turns
+        log(f"[score_tiles] {name} at tile {tj}: {root} / this / this / {root} "
+            + " / ".join(f"{ms:.4f}" for ms in turns) + f" ms ({cells:.3e} cells)")
+    return out
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["--against"]:
+        if len(argv) != 2:
+            raise SystemExit("usage: python -m sarlacc_tpu_torch.tools.score_tiles --against ROOT")
+        against(argv[1])
+        return 0
     measure(tuple(int(a) for a in argv) or SWEEP)
     return 0
 

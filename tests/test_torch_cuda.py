@@ -408,11 +408,14 @@ def test_barcode_and_tune_launch_kernel_d(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R", [51, 70])
 @pytest.mark.parametrize("local", [False, True])
-def test_ablation_kernels_match_plain(cuda_device, local):
+def test_ablation_kernels_match_plain(cuda_device, local, R):
+    """Each variant launches once and equals its plain version; ``full``
+    equals kernel C (R = 70 takes two column tiles and the hand-off)."""
     from sarlacc_tpu_torch.tools import score_ablation as sa
 
-    args = list(sa.make_inputs(700, 60, 9, cuda_device, seed=4))
+    args = list(sa.make_inputs(700, 60, R, cuda_device, seed=4))
     lengths = torch.as_tensor(np.random.default_rng(5).integers(0, 61, 700), dtype=torch.int32)
     args[-1] = lengths.to(cuda_device)
     assert torch.equal(sa.ablation_kernel("full", *args, local=local),
@@ -424,6 +427,8 @@ def test_ablation_kernels_match_plain(cuda_device, local):
         want = sa.ablated_scores_plain(variant, *args, local=local)
         torch.cuda.synchronize()
         assert torch.equal(got, want), variant
+    res = sa.ablation_resources(score_tile([(0, R, local)]))
+    assert set(res) == set(sa.VARIANTS) and all(r["blocks_per_sm"] >= 1 for r in res.values())
 
 
 @pytest.mark.cuda

@@ -4,9 +4,12 @@ own loops written out in numpy float32.
 
 * The ``full`` ablation equals the Pallas ``_kernel``; ``full`` and
   ``no-dyncost`` equal ``_kernel_ablate`` of
-  scripts/microbench_score_ablation.py, bit for bit.
+  scripts/microbench_score_ablation.py, and ``no-rowload`` the Pallas
+  ``_kernel`` on planes whose every row is row 0, bit for bit.
 * Every ablation variant's plain version equals a scalar transliteration of
-  ``csrc/score_ablation.cu`` (the only check of ``no-state`` off the card).
+  kernel C's body with the variant's flags (``csrc/score_kernel.cu``,
+  ``score_one``: rows outer, column tiles with the hand-off, the peeled
+  fitting column, the masked row fetch), also across two column tiles.
 * The ``add``/``max``/``select`` chains of tools/op_rates.py equal
   scripts/microbench_vpu_ops.py's ``_bench_kernel`` and the ``elementwise``
   chain of tools/op_mix.py equals scripts/microbench_op_mix.py's kernel, at
@@ -34,6 +37,8 @@ torch.set_num_threads(1)
 
 import sarlacc_tpu.utils.cache as jax_cache  # noqa: E402
 from sarlacc_tpu.ops import pallas_align as pa  # noqa: E402
+from sarlacc_tpu_torch.ops.align import dp_scores  # noqa: E402
+from sarlacc_tpu_torch.ops.cuda_align import score_tile  # noqa: E402
 from sarlacc_tpu_torch.tools import op_mix, op_rates, profile_demux, score_ablation  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -106,43 +111,71 @@ def test_ablation_equals_kernel_ablate(script, variant):
 
 
 def _scalar_kernel(variant, modes, mask, go, ge, costm, costmm, codes, lengths, local):
-    """``csrc/score_ablation.cu::score_one`` written out in numpy float32,
-    one read at a time, with the state cells indexed as the kernel does."""
-    no_vgap, no_dyncost, no_state = score_ablation.VARIANTS[variant]
+    """``csrc/score_kernel.cu::score_one`` with the variant's ablation flags,
+    written out in numpy float32 one read at a time: rows outer inside
+    column tiles of kernel C's width for R, each tile's last column handed
+    to the next through a per-row slot, fitting mode's last column peeled
+    off the tiles, row i's code and costs fetched at row ``i & row_mask``
+    (0 for ``no-rowload``, every bit set otherwise)."""
+    flags = score_ablation.VARIANTS[variant]
+    no_vgap = bool(flags & score_ablation.NO_VGAP)
+    no_dyncost = bool(flags & score_ablation.NO_DYNCOST)
+    row_mask = 0 if flags & score_ablation.NO_ROWLOAD else -1
     f = np.float32
     go, ge = f(f(go) + f(ge)), f(ge)
     NEG = f(-3.0e38)
-    l1, n_pad = codes.shape
+    l1 = codes.shape[0]
+    R = len(modes)
+    tj = score_tile([(0, R, local)])
+    peel = local and R > 0
+    rn = R - int(peel)
+    ntiles = -(-rn // tj) if rn > tj else 1
     out = np.zeros(len(lengths), np.float32)
-    for n, ln in enumerate(lengths):
-        S = np.zeros(l1, np.float32)
-        H = np.zeros(l1, np.float32)
-        res = f(0)
-        for i in range(ln + 1):
-            st = 0 if no_state else i
-            res = f(0) if (local or i == 0) else f(f(-go) - f(f(f(i) - f(1)) * ge))
-            S[st], H[st] = res, NEG
-        for j, (m, mk) in enumerate(zip(modes, mask)):
-            zero_vgap = local and j == len(modes) - 1
-            s_up, cum = NEG, NEG
+    for n, ln in enumerate(np.clip(lengths, 0, l1 - 1)):
+        bS = np.zeros(l1, np.float32)
+        bH = np.zeros(l1, np.float32)
+        sL = f(0)
+        for t in range(ntiles):
+            j0, tl, last = t * tj, min(tj, rn - t * tj), t == ntiles - 1
+            pS, cum = [NEG] * tl, [NEG] * tl
+            cumZ, dL = NEG, NEG
             for i in range(ln + 1):
-                st = 0 if no_state else i
-                s_old, h_old, code = S[st], H[st], codes[i, n]
-                if no_dyncost:
-                    cost = f(-0.1) if code == 1 else f(-1.0)
+                src = i & row_mask
+                code = codes[src, n]
+
+                def cost(j):
+                    if no_dyncost:
+                        return f(-0.1) if code == 1 else f(-1.0)
+                    m = min(max(int(modes[j]), 1), 4) - 1
+                    return (costm if (mask[j] >> code) & 1 else costmm)[m, src, n]
+
+                fi = f(i)
+                rge, rge1 = f(fi * ge), f(f(fi - f(1)) * ge)
+                if t == 0:
+                    sL = f(0) if (local or i == 0) else f(f(-go) - rge1)
+                    hL = NEG
                 else:
-                    cost = (costm if (mk >> code) & 1 else costmm)[m - 1, i, n]
-                Hn = max(f(s_old - go), f(h_old - ge))
-                mv = max(f(s_up + cost), Hn)
-                V = NEG
-                if not no_vgap:
-                    V = cum if zero_vgap else f(cum - f(f(f(i) - f(1)) * ge))
-                    B = mv if zero_vgap else f(f(mv - go) + f(f(i) * ge))
-                    cum = max(cum, B)
-                res = max(mv, V)
-                S[st], H[st] = res, Hn
-                s_up = s_old
-        out[n] = res
+                    sL, hL = bS[i], bH[i]
+                diag, dL = dL, sL
+                for q in range(tl):
+                    Hn = max(f(sL - go), f(hL - ge))
+                    mv = max(f(diag + cost(j0 + q)), Hn)
+                    if no_vgap:
+                        s = mv
+                    else:
+                        s = max(mv, f(cum[q] - rge1))
+                        cum[q] = max(cum[q], f(f(mv - go) + rge))
+                    diag, pS[q] = pS[q], s
+                    sL, hL = s, Hn
+                if peel and last:
+                    Hn = max(f(sL - go), f(hL - ge))
+                    mv = max(f(diag + cost(R - 1)), Hn)
+                    sL, hL = (mv if no_vgap else max(mv, cumZ)), Hn
+                    if not no_vgap:
+                        cumZ = max(cumZ, mv)
+                if not last:
+                    bS[i], bH[i] = sL, hL
+        out[n] = sL
     return out
 
 
@@ -154,6 +187,38 @@ def test_ablation_plain_equals_kernel_loop(variant, local):
     args = (*args[:-1], torch.as_tensor(lengths))
     want = _scalar_kernel(variant, modes, mask, go, ge, costm, costmm, codes, lengths, local)
     got = score_ablation.ablated_scores_plain(variant, *args, local=local)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_kernel_loop_across_two_tiles_equals_dp_scores(local):
+    """At R = 70 kernel C runs two tiles of 63 columns (the second 7 or 6
+    wide, then the peeled column when fitting): the transliteration with
+    its hand-off equals ``dp_scores``."""
+    args, (modes, mask, go, ge, costm, costmm, codes, _) = _ablation_inputs(N=9, L=15, R=70, seed=7)
+    assert score_tile([(0, 70, local)]) == 63
+    lengths = np.random.default_rng(8).integers(0, 16, 9).astype(np.int32)
+    want = dp_scores(*args[:-1], local)[:, :9].gather(0, torch.as_tensor(lengths, dtype=torch.int64)[None])[0]
+    got = _scalar_kernel("full", modes, mask, go, ge, costm, costmm, codes, lengths, local)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_no_rowload_equals_pallas_kernel_on_row0_planes(local):
+    """``no-rowload`` is kernel C on planes whose every row is row 0: the
+    JAX package's Pallas ``_kernel`` (interpret mode) on such planes."""
+    args, (modes, mask, go, ge, costm, costmm, codes, lengths) = _ablation_inputs(seed=11)
+    lengths = np.random.default_rng(12).integers(0, 32, len(lengths)).astype(np.int32)
+    args = (*args[:-1], torch.as_tensor(lengths))
+    l1, n_pad = codes.shape
+    row0 = [np.ascontiguousarray(np.broadcast_to(p[..., :1, :], p.shape)) for p in (costm, costmm)]
+    codes0 = np.ascontiguousarray(np.broadcast_to(codes[:1], codes.shape))
+    want = np.asarray(pa._launch_planes(
+        jnp.asarray(modes), jnp.asarray(mask), jnp.asarray([go, ge], jnp.float32),
+        jnp.asarray(row0[0]), jnp.asarray(row0[1]), jnp.asarray(codes0), jnp.asarray(lengths),
+        rlen=len(modes), l1=l1, n_pad=n_pad, local=local, interpret=True,
+    ))
+    got = score_ablation.ablated_scores_plain("no-rowload", *args, local=local)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -235,6 +300,36 @@ def test_tools_run_on_cpu():
     assert all("cpu" in lines[i] for i in (0,))
     for res in (r, m):
         assert all(np.isfinite(v["rate"]) and v["rate"] > 0 for v in res["classes"].values())
+
+
+def test_ablation_build_covers_kernel_c_source():
+    """The ablation library is kernel C's source with other entries: its
+    build hash covers ``score_kernel.cu``, and the source has no DP of its
+    own (no S/H planes, no cell loop)."""
+    from sarlacc_tpu_torch.native.build import local_sources
+
+    kern = score_ablation.KERNELS["full"]
+    assert [pathlib.Path(p).name for p in local_sources(kern.source)] == [
+        "score_ablation.cu", "score_kernel.cu"]
+    source = open(kern.source).read()
+    assert '#include "score_kernel.cu"' in source and "for (int i" not in source
+    assert all(f"sarlacc_ablate_{v.replace('-', '_')}" in source for v in score_ablation.VARIANTS)
+
+
+def test_issue_ceilings_follow_the_busiest_pipe():
+    """Per-class issue ceilings at 132 SMs x 1 980 MHz: an add 128 a clock
+    an SM, a max or select 64, a shuffle (with its add) 32; op_mix's
+    iterations by their busiest pipe or the schedulers' dispatch."""
+    sm_clk = 132 * 1.98e9
+    want = {"add": 128, "max": 64, "select": 64, "shfl1": 32, "shfl16": 32}
+    for cls, per_clock in want.items():
+        assert op_rates.issue_ceiling(op_rates.RATE_MIX[cls], 132, 1.98e9) == pytest.approx(per_clock * sm_clk)
+    d = op_mix.DEPTH
+    want = {"elementwise": 128, "select+add": 128, "shift+max": (2 * d + 1) / (d / 32),
+            "shift-stage(3op)": (3 * d + 1) / (2 * d / 64)}
+    for cls, per_clock in want.items():
+        assert op_rates.issue_ceiling(op_mix.MIX_PIPES[cls], 132, 1.98e9) == pytest.approx(per_clock * sm_clk)
+    assert set(op_rates.ABLATION_CENSUS) == set(score_ablation.VARIANTS)
 
 
 def test_score_tiles_routes_each_case_to_its_width():

@@ -1,0 +1,8 @@
+"""Seconds in ``adaptor_align`` (the benchmark's span, ended by a synchronise) per thousand
+reads."""
+
+from benchmark.readers import per_kread
+
+
+def read(obs):
+    return per_kread(obs, obs["spans"].seconds("entry.adaptor_align"))

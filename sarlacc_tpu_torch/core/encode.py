@@ -16,7 +16,10 @@ described by a degeneracy ``mode`` (1, 2, 3 or 4) plus a 5-wide boolean
 (the C++ compares *ref* rather than the observed base against the
 constituents; see SURVEY.md §2 C1).
 
-Copied unchanged from ``sarlacc_tpu/core/encode.py`` (numpy only, no JAX).
+Numpy only, no JAX.  The same containers and codes as
+``sarlacc_tpu/core/encode.py``, whose per-row loops the row-cutting methods
+(``subseq``, ``front_and_back``, the reverse complements) replace with one
+gather over the whole batch; their outputs are byte for byte the loops'.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from dataclasses import dataclass, field
 from typing import Iterable, Sequence
 
 import numpy as np
+from numpy.lib.stride_tricks import sliding_window_view
 
 __all__ = [
     "BASES",
@@ -49,9 +53,6 @@ for _i, _b in enumerate(BASES):
     _ENC[ord(_b.lower())] = _i
 
 _DEC = np.frombuffer(BASES.encode(), dtype=np.uint8)
-
-# Complement in code space: A<->T, C<->G, N->N, -.
-_COMP = np.array([3, 2, 1, 0, 4, 5], dtype=np.int8)
 
 
 def encode_seq(seq: str) -> np.ndarray:
@@ -84,14 +85,54 @@ def decode_batch(codes: np.ndarray, lengths: np.ndarray) -> list[str]:
     return [decode_seq(c, int(l)) for c, l in zip(codes, lengths)]
 
 
+def _row_windows(arr: np.ndarray, first: np.ndarray, width: int,
+                 reverse: bool = False) -> np.ndarray:
+    """Row ``i``'s ``width`` columns from ``first[i]`` up (``reverse``: down).
+
+    One gather over the whole batch: the rows are read as one flat buffer
+    through a sliding window, so a window may run past its row into the next
+    or the previous one, and callers blank what lies past each row's length.
+    A window that leaves the buffer itself (of a non-empty row, only the
+    first row's reversed or the last row's forward) takes its columns through
+    a clipped index instead.
+    """
+    rows, cols = arr.shape
+    if rows == 0 or width == 0:
+        return np.empty((rows, width), dtype=arr.dtype)
+    flat = np.ascontiguousarray(arr).reshape(-1)
+    lo = np.asarray(first, dtype=np.int64) - (width - 1 if reverse else 0)
+    pos = np.arange(rows, dtype=np.int64) * cols + lo
+    inside = np.clip(pos, 0, flat.size - width)
+    windows = sliding_window_view(flat, width)
+    out = (windows[:, ::-1] if reverse else windows)[inside]
+    edge = np.flatnonzero(pos != inside)
+    if edge.size:
+        step = np.arange(width)
+        cells = pos[edge, None] + (step[::-1] if reverse else step)
+        out[edge] = np.take(flat, cells, mode="clip")
+    return out
+
+
+def _past(lengths: np.ndarray, width: int) -> np.ndarray:
+    """Mask of the columns at or past each row's length."""
+    return np.arange(width, dtype=np.int32) >= np.asarray(lengths, dtype=np.int32)[:, None]
+
+
+def _complement(codes: np.ndarray) -> np.ndarray:
+    """Complement in code space, A<->T, C<->G, N->N, '-'->'-', in two
+    whole-array passes (a table lookup takes several times as long)."""
+    out = 3 - codes
+    np.copyto(out, codes, where=codes > 3)
+    return out
+
+
 def reverse_complement_codes(codes: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     """Reverse-complement each row of a padded code matrix in place of its length."""
     codes = np.asarray(codes)
-    out = np.full_like(codes, GAP_CODE)
-    for i in range(codes.shape[0]):
-        n = int(lengths[i])
-        out[i, :n] = _COMP[codes[i, :n][::-1]]
-    return out
+    lengths = np.asarray(lengths, dtype=np.int64)
+    rc = _complement(_row_windows(codes, lengths - 1, codes.shape[1], reverse=True))
+    rc[_past(lengths, rc.shape[1])] = GAP_CODE
+    return rc
 
 
 @dataclass
@@ -184,40 +225,56 @@ class SeqBatch:
         rc = reverse_complement_codes(self.codes, self.lengths)
         rq = None
         if self.quals is not None:
-            rq = np.zeros_like(self.quals)
-            for i in range(len(self)):
-                n = int(self.lengths[i])
-                rq[i, :n] = self.quals[i, :n][::-1]
+            last = self.lengths.astype(np.int64) - 1
+            rq = _row_windows(self.quals, last, self.width, reverse=True)
+            rq[_past(self.lengths, self.width)] = 0
         return SeqBatch(rc, self.lengths.copy(), rq, self.names)
 
     def subseq(self, starts: np.ndarray, ends: np.ndarray) -> "SeqBatch":
-        """Per-row 1-based inclusive [start, end] slices (Biostrings subseq)."""
-        starts = np.asarray(starts, dtype=np.int64)
+        """Per-row 1-based inclusive [start, end] slices (Biostrings subseq).
+
+        A non-empty slice must lie inside its row's columns.
+        """
+        first = np.asarray(starts, dtype=np.int64) - 1
         ends = np.asarray(ends, dtype=np.int64)
-        new_lens = np.maximum(ends - starts + 1, 0).astype(np.int32)
+        new_lens = np.maximum(ends - first, 0).astype(np.int32)
         width = int(new_lens.max()) if len(self) else 0
-        codes = np.full((len(self), width), GAP_CODE, dtype=np.int8)
-        quals = np.zeros((len(self), width), dtype=np.uint8) if self.quals is not None else None
-        for i in range(len(self)):
-            n = int(new_lens[i])
-            s = int(starts[i]) - 1
-            codes[i, :n] = self.codes[i, s : s + n]
-            if quals is not None:
-                quals[i, :n] = self.quals[i, s : s + n]
-        return SeqBatch(codes, new_lens, quals, self.names)
+        if np.any((new_lens > 0) & ((first < 0) | (first + new_lens > self.width))):
+            raise ValueError("a subsequence runs outside its read's columns")
+        codes = _row_windows(self.codes, first, width).astype(np.int8, copy=False)
+        quals = None
+        if self.quals is not None:
+            quals = _row_windows(self.quals, first, width).astype(np.uint8, copy=False)
+        return SeqBatch(*_blanked(codes, quals, new_lens), self.names)
 
     def front_and_back(self, tolerance: int):
         """Reference ``.get_front_and_back`` (R/adaptorAlign.R:86-95).
 
         Returns (front, back) where ``front`` is the first ``tolerance`` bases
         and ``back`` the reverse complement of the last ``tolerance`` bases,
-        both clipped to the read length.
+        both clipped to the read length.  The back is gathered reversed.
         """
-        tol = np.minimum(tolerance, self.lengths).astype(np.int64)
-        ones = np.ones(len(self), dtype=np.int64)
-        front = self.subseq(ones, tol)
-        back = self.subseq(self.lengths - tol + 1, self.lengths.astype(np.int64))
-        return front, back.reverse_complement()
+        lens = self.lengths.astype(np.int64)
+        front = self.subseq(np.ones(len(self), dtype=np.int64), np.minimum(tolerance, lens))
+        last = lens - 1
+        codes = _complement(_row_windows(self.codes, last, front.width, reverse=True))
+        quals = None
+        if self.quals is not None:
+            quals = _row_windows(self.quals, last, front.width, reverse=True)
+        back = _blanked(codes.astype(np.int8, copy=False),
+                        None if quals is None else quals.astype(np.uint8, copy=False),
+                        front.lengths.copy())
+        return front, SeqBatch(*back, self.names)
+
+
+def _blanked(codes: np.ndarray, quals: np.ndarray | None, lengths: np.ndarray):
+    """(codes, lengths, quals) with the columns past each length set to the
+    padding: ``GAP_CODE`` in the codes, 0 in the qualities."""
+    past = _past(lengths, codes.shape[1])
+    codes[past] = GAP_CODE
+    if quals is not None:
+        quals[past] = 0
+    return codes, lengths, quals
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,16 @@ greedy clusterer produces the reference's clusters.  Indices are 0-based.
 With a ``mesh``, pre-groups are shuffled so each lands wholly on one shard
 and grouped there (:func:`..parallel.shuffle.sharded_umi_group`); the merged
 output equals the solo run's.
+
+Inside ``umi_group`` the stage profiler times ``umi.mask`` (quality
+masking), ``umi.unique`` (duplicate strings collapsed), ``umi.scan`` (the
+neighbour search, by any route), ``umi.csr`` (the neighbour lists built
+from its result), ``umi.intersect`` (the two UMIs' lists intersected) and
+``umi.cluster`` (the greedy clusterer), each with ``items`` its rows or
+strings; the counters ``umi.route.dense`` (dense searches),
+``umi.unique_strings`` (strings of the sparse searches) and, from
+:func:`..ops.levenshtein.lev2_neighbor_pairs`, ``umi.route.filter`` and
+``umi.route.rowblock`` count the routes taken.
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ from ..native import greedy_cluster_csr, greedy_cluster_weighted_csr
 from ..ops.levenshtein import _unique_rows, lev2_condensed, lev2_matrix, lev2_neighbor_pairs
 from ..parallel.context import mesh_device
 from ..refimpl.masking import mask_bad_bases
-from ..utils.profiling import profiled
+from ..utils.profiling import count, profiled, profiler
 
 __all__ = ["quality_mask", "expected_dist", "umi_group"]
 
@@ -93,25 +103,69 @@ def _neighbor_csr(
     """
     n = codes.shape[0]
     if n < SPARSE_MIN:
-        mat = lev2_matrix(codes, lengths, device=device)
-        adj = mat <= 2 * int(limit)
-        order = _dfs_order(codes, lengths)
-        A = adj[order].T  # [query, rank]
-        q_arr, rank_arr = np.nonzero(A)  # row-major: q asc, rank asc
-        flat = order[rank_arr].astype(np.int32)
-        offsets = np.concatenate(
-            [[0], np.cumsum(A.sum(axis=1, dtype=np.int64))]
-        )
+        count("umi.route.dense")
+        with profiler("umi.scan", items=n):
+            mat = lev2_matrix(codes, lengths, device=device)
+        with profiler("umi.csr", items=n):
+            adj = mat <= 2 * int(limit)
+            order = _dfs_order(codes, lengths)
+            A = adj[order].T  # [query, rank]
+            q_arr, rank_arr = np.nonzero(A)  # row-major: q asc, rank asc
+            flat = order[rank_arr].astype(np.int32)
+            offsets = np.concatenate(
+                [[0], np.cumsum(A.sum(axis=1, dtype=np.int64))]
+            )
         return flat, offsets
 
-    u_codes, first_idx, inv, cnt = _unique_rows(codes)
-    inv = inv.reshape(-1)
-    u_lens = lengths[first_idx].astype(np.int32)
-    m = u_codes.shape[0]
-    qi, qj = lev2_neighbor_pairs(
-        u_codes.astype(np.int32), u_lens, limit, assume_unique=True, device=device
-    )
+    u_codes, inv, cnt, u_lens, qi, qj = _unique_pairs(codes, lengths, limit, device)
+    with profiler("umi.csr", items=n):
+        m = u_codes.shape[0]
+        ua, va = _dfs_pairs(u_codes, u_lens, qi, qj)
+        u_deg = np.bincount(ua, minlength=m)
+        u_off = np.concatenate([[0], np.cumsum(u_deg)])
 
+        # Reads per unique, index order (== DFS order within a duplicate block:
+        # the stable lexsort keeps equal strings in index order).
+        order_by_uid = np.argsort(inv, kind="stable").astype(np.int64)
+        uid_off = np.concatenate([[0], np.cumsum(cnt)])
+
+        # Expand each unique-level neighbour v to its reads R_v.
+        lens_e = cnt[va]
+        e_cum = np.concatenate([[0], np.cumsum(lens_e)])
+        total = int(e_cum[-1])
+        offs = np.repeat(uid_off[va] - e_cum[:-1], lens_e)
+        L_flat = order_by_uid[offs + np.arange(total)].astype(np.int32)
+        exp_start_u = e_cum[u_off[:-1]]
+        exp_end_u = e_cum[u_off[1:]]
+
+        # Every read of unique u shares u's expanded list.
+        deg_r = (exp_end_u - exp_start_u)[inv]
+        offsets = np.concatenate([[0], np.cumsum(deg_r)])
+        offs_r = np.repeat(exp_start_u[inv] - offsets[:-1], deg_r)
+        flat = L_flat[offs_r + np.arange(int(offsets[-1]))]
+    return flat, offsets
+
+
+def _unique_pairs(codes: np.ndarray, lengths: np.ndarray, limit: int, device):
+    """Duplicate strings collapsed (``umi.unique``), then the sparse
+    neighbour search over the unique strings (``umi.scan``): (unique codes,
+    each row's unique, each unique's count, unique lengths, qi, qj)."""
+    with profiler("umi.unique", items=codes.shape[0]):
+        u_codes, first_idx, inv, cnt = _unique_rows(codes)
+        inv = inv.reshape(-1)
+        u_lens = lengths[first_idx].astype(np.int32)
+    count("umi.unique_strings", u_codes.shape[0])
+    with profiler("umi.scan", items=u_codes.shape[0]):
+        qi, qj = lev2_neighbor_pairs(
+            u_codes.astype(np.int32), u_lens, limit, assume_unique=True, device=device
+        )
+    return u_codes, inv, cnt, u_lens, qi, qj
+
+
+def _dfs_pairs(u_codes, u_lens, qi, qj):
+    """Both orientations of the unique-level pairs ``qi <= qj``, sorted by
+    the first and then by the second's trie DFS rank: (ua, va) int64."""
+    m = u_codes.shape[0]
     off_diag = qi != qj
     ua = np.concatenate([qi, qj[off_diag]]).astype(np.int64)
     va = np.concatenate([qj, qi[off_diag]]).astype(np.int64)
@@ -121,30 +175,7 @@ def _neighbor_csr(
     urank[uorder] = np.arange(m)
 
     sortk = np.lexsort((urank[va], ua))
-    ua, va = ua[sortk], va[sortk]
-    u_deg = np.bincount(ua, minlength=m)
-    u_off = np.concatenate([[0], np.cumsum(u_deg)])
-
-    # Reads per unique, index order (== DFS order within a duplicate block:
-    # the stable lexsort keeps equal strings in index order).
-    order_by_uid = np.argsort(inv, kind="stable").astype(np.int64)
-    uid_off = np.concatenate([[0], np.cumsum(cnt)])
-
-    # Expand each unique-level neighbour v to its reads R_v.
-    lens_e = cnt[va]
-    e_cum = np.concatenate([[0], np.cumsum(lens_e)])
-    total = int(e_cum[-1])
-    offs = np.repeat(uid_off[va] - e_cum[:-1], lens_e)
-    L_flat = order_by_uid[offs + np.arange(total)].astype(np.int32)
-    exp_start_u = e_cum[u_off[:-1]]
-    exp_end_u = e_cum[u_off[1:]]
-
-    # Every read of unique u shares u's expanded list.
-    deg_r = (exp_end_u - exp_start_u)[inv]
-    offsets = np.concatenate([[0], np.cumsum(deg_r)])
-    offs_r = np.repeat(exp_start_u[inv] - offsets[:-1], deg_r)
-    flat = L_flat[offs_r + np.arange(int(offsets[-1]))]
-    return flat, offsets
+    return ua[sortk], va[sortk]
 
 
 def _group_large_single(
@@ -158,44 +189,32 @@ def _group_large_single(
     reproduces it exactly — W(u) = sum of duplicate counts over unclaimed
     DFS neighbours, ties to the largest member read index.
     """
-    u_codes, first_idx, inv, cnt = _unique_rows(codes)
-    inv = inv.reshape(-1)
-    u_lens = lengths[first_idx].astype(np.int32)
+    u_codes, inv, cnt, u_lens, qi, qj = _unique_pairs(codes, lengths, limit, device)
     m = u_codes.shape[0]
-    qi, qj = lev2_neighbor_pairs(
-        u_codes.astype(np.int32), u_lens, limit, assume_unique=True, device=device
-    )
+    with profiler("umi.csr", items=m):
+        ua, va = _dfs_pairs(u_codes, u_lens, qi, qj)
+        u_off = np.concatenate([[0], np.cumsum(np.bincount(ua, minlength=m))])
 
-    off_diag = qi != qj
-    ua = np.concatenate([qi, qj[off_diag]]).astype(np.int64)
-    va = np.concatenate([qj, qi[off_diag]]).astype(np.int64)
+        order_by_uid = np.argsort(inv, kind="stable").astype(np.int64)
+        uid_off = np.concatenate([[0], np.cumsum(cnt)])
+        maxidx = order_by_uid[uid_off[1:] - 1]  # stable sort: block max is last
 
-    uorder = _dfs_order(u_codes, u_lens)
-    urank = np.empty(m, np.int64)
-    urank[uorder] = np.arange(m)
-    sortk = np.lexsort((urank[va], ua))
-    ua, va = ua[sortk], va[sortk]
-    u_off = np.concatenate([[0], np.cumsum(np.bincount(ua, minlength=m))])
-
-    order_by_uid = np.argsort(inv, kind="stable").astype(np.int64)
-    uid_off = np.concatenate([[0], np.cumsum(cnt)])
-    maxidx = order_by_uid[uid_off[1:] - 1]  # stable sort: block max is last
-
-    members, offs = greedy_cluster_weighted_csr(
-        va.astype(np.int32), u_off, cnt.astype(np.int64), maxidx
-    )
-    # Expand unique members back to read indices (reads of each unique in
-    # ascending index order, matching the read-level claim loop).
-    lens_m = cnt[members]
-    e_cum = np.concatenate([[0], np.cumsum(lens_m)])
-    total = int(e_cum[-1])
-    offs_flat = np.repeat(uid_off[members] - e_cum[:-1], lens_m)
-    flat_reads = order_by_uid[offs_flat + np.arange(total)]
-    read_offs = e_cum[offs]
-    return [
-        flat_reads[read_offs[c] : read_offs[c + 1]]
-        for c in range(offs.size - 1)
-    ]
+    with profiler("umi.cluster", items=codes.shape[0]):
+        members, offs = greedy_cluster_weighted_csr(
+            va.astype(np.int32), u_off, cnt.astype(np.int64), maxidx
+        )
+        # Expand unique members back to read indices (reads of each unique in
+        # ascending index order, matching the read-level claim loop).
+        lens_m = cnt[members]
+        e_cum = np.concatenate([[0], np.cumsum(lens_m)])
+        total = int(e_cum[-1])
+        offs_flat = np.repeat(uid_off[members] - e_cum[:-1], lens_m)
+        flat_reads = order_by_uid[offs_flat + np.arange(total)]
+        read_offs = e_cum[offs]
+        return [
+            flat_reads[read_offs[c] : read_offs[c + 1]]
+            for c in range(offs.size - 1)
+        ]
 
 
 def _group_one(
@@ -220,19 +239,22 @@ def _group_one(
     if c2 is not None:
         flat2, offs2 = _neighbor_csr(c2, l2, threshold2, device)
         # UMI2-query emission order, membership-tested against UMI1
-        # (umi_group.cpp:85-100) — vectorized as (query, member) key
-        # intersection over the two CSR lists.
-        rq1 = np.repeat(np.arange(curn, dtype=np.int64), np.diff(offs))
-        rq2 = np.repeat(np.arange(curn, dtype=np.int64), np.diff(offs2))
-        keep = np.isin(
-            rq2 * curn + flat2.astype(np.int64),
-            rq1 * curn + flat.astype(np.int64),
-        )
-        flat = flat2[keep]
-        offs = np.concatenate(
-            [[0], np.cumsum(np.bincount(rq2[keep], minlength=curn))]
-        )
-    return [np.asarray(cl, dtype=np.int64) for cl in greedy_cluster_csr(flat, offs)]
+        # (umi_group.cpp:85-100) — vectorized as (query, member) keys of
+        # the UMI2 list looked up in the sorted keys of the UMI1 list.
+        with profiler("umi.intersect", items=curn):
+            rq1 = np.repeat(np.arange(curn, dtype=np.int64), np.diff(offs))
+            rq2 = np.repeat(np.arange(curn, dtype=np.int64), np.diff(offs2))
+            k1 = np.sort(rq1 * curn + flat.astype(np.int64))
+            k2 = rq2 * curn + flat2.astype(np.int64)
+            keep = np.zeros(k2.size, bool)
+            if k1.size:
+                keep = k1[np.minimum(np.searchsorted(k1, k2), k1.size - 1)] == k2
+            flat = flat2[keep]
+            offs = np.concatenate(
+                [[0], np.cumsum(np.bincount(rq2[keep], minlength=curn))]
+            )
+    with profiler("umi.cluster", items=curn):
+        return [np.asarray(cl, dtype=np.int64) for cl in greedy_cluster_csr(flat, offs)]
 
 
 @profiled("umi_group")
@@ -256,8 +278,9 @@ def umi_group(
     dev = mesh_device(mesh, device)
     if threshold2 is None:
         threshold2 = threshold1
-    b1 = quality_mask(umi1, max_err, qual_type)
-    b2 = quality_mask(umi2, max_err, qual_type) if umi2 is not None else None
+    with profiler("umi.mask", items=len(umi1) * (1 + (umi2 is not None))):
+        b1 = quality_mask(umi1, max_err, qual_type)
+        b2 = quality_mask(umi2, max_err, qual_type) if umi2 is not None else None
     if b2 is not None and len(b2) != len(b1):
         raise ValueError("'umi1' and 'umi2' should have the same length")
 

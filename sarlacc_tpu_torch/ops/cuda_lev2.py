@@ -21,6 +21,7 @@ import torch
 
 from ..device import memory_budget
 from ..native.build import CudaKernel, check_tensor, kernel_resources
+from ..utils.profiling import count
 
 __all__ = ["HITS_KERNEL", "LEV2_KERNEL", "LEV2_ROUTES", "hits_route", "lev2_cross", "lev2_hits",
            "fit_hits", "lev2_kernel_resources", "lev2_paired", "lev2_route", "rowblock_jobs"]
@@ -165,7 +166,12 @@ def lev2_hits(codes, lens, s_len, thr: int, limit: int, tile: int, cells=None, c
     size (:func:`fit_hits`); the caller reads the keys.  Hits beyond the
     memory budget (24 bytes a hit: the buffer and the sort's values and
     indices) are found in parts of whole row tiles, a count readback
-    each, and then come back on the host."""
+    each, and then come back on the host.
+
+    The profiler's counters gain, a scan, ``lev2.cells`` (the DP cells,
+    read with the first run's count), ``lev2.hits``, ``lev2.in_bytes`` (the
+    codes, lengths and jobs the kernel is given) and, through
+    :func:`fit_hits`, ``lev2.reruns``."""
     n, W = codes.shape
     codes = codes.to(torch.int8).contiguous()
     check_tensor(codes, "codes", torch.int8, (n, W))
@@ -185,18 +191,18 @@ def lev2_hits(codes, lens, s_len, thr: int, limit: int, tile: int, cells=None, c
         bw = 2 * (thr // 2) + 1
         blocks = max(1, min(n_jobs, SCRATCH_BYTES // (4 * bw * HIT_ROWS)))
         scratch = torch.empty(bw * blocks * HIT_ROWS, dtype=torch.int32, device=dev)
-    count = torch.zeros(1, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)  # the hit count, the DP cells
+    found = stats[0:1]
+    scan_cells = []
 
     def run(j0, j1, cap_, cells_):
         hits = torch.empty(cap_, dtype=torch.int64, device=dev)
-        count.zero_()
-        HITS_KERNEL.launch(
-            codes.data_ptr(), lens.data_ptr(), W, n, thr, jobs.data_ptr() + 16 * j0, j1 - j0,
-            hits.data_ptr(), cap_, count.data_ptr(), None if cells_ is None else cells_.data_ptr(),
-            ("band_reg", "band_scratch").index(route), None if scratch is None else
-            scratch.data_ptr(), blocks, stream)
-        return hits, int(count)  # a readback: the exact count
+        found.zero_()
+        _launch_hits(codes, lens, thr, jobs[j0:j1], hits, found, cells_, route, scratch, blocks)
+        total, c = stats.tolist()  # one readback: the exact count and the cells
+        if cells_ is not None:
+            scan_cells.append(c)
+        return hits, total
 
     # Row tiles (the jobs of one r0) are the unit of a split: a part's rows
     # all follow the previous part's, so the parts' sorted keys concatenate
@@ -205,11 +211,28 @@ def lev2_hits(codes, lens, s_len, thr: int, limit: int, tile: int, cells=None, c
     most = memory_budget(dev, 1 / 16, 1 << 30, "lev2_hits") // 24
     keys = []
     for j0, j1, hits, total in fit_hits(run, starts, max(1 << 16, 8 * n) if cap is None
-                                        else int(cap), most, cells):
+                                        else int(cap), most, stats[1:2]):
         part = torch.sort(hits[:total]).values
         del hits
         keys.append(part if (j0, j1) == (0, n_jobs) else part.cpu())
+    if cells is not None:
+        cells += stats[1:2]
+    count("lev2.cells", scan_cells[0])
+    count("lev2.in_bytes", n * W + 4 * n + 16 * n_jobs)
     return keys[0] if len(keys) == 1 else torch.cat(keys)
+
+
+def _launch_hits(codes, lens, thr, jobs, hits, found, cells, route, scratch, blocks):
+    """One launch of the thresholded form over ``jobs`` (rows of the job
+    table) into ``hits``, its exact count into ``found``, and, where
+    ``cells`` is given, its DP cells added to ``cells``."""
+    n, W = codes.shape
+    HITS_KERNEL.launch(
+        codes.data_ptr(), lens.data_ptr(), W, n, thr, jobs.data_ptr(), jobs.shape[0],
+        hits.data_ptr(), hits.numel(), found.data_ptr(),
+        None if cells is None else cells.data_ptr(), ("band_reg", "band_scratch").index(route),
+        None if scratch is None else scratch.data_ptr(), blocks,
+        torch.cuda.current_stream(codes.device))
 
 
 def fit_hits(run, starts, cap: int, most: int, cells=None):
@@ -221,16 +244,29 @@ def fit_hits(run, starts, cap: int, most: int, cells=None):
     ``most``) keys; on overflow one re-run with a buffer of the count where
     it is at most ``most`` keys (or the range is one row tile), else the
     row tiles split in two halves, each fitted so.  Only the first run
-    gains ``cells``."""
+    gains ``cells``.  The profiler's counter ``lev2.reruns`` gains every
+    run after the first (re-runs and the runs of split parts),
+    ``lev2.hits`` every yielded count."""
+    runs = 0
+
+    def counted(j0, j1, cap_, cells_):
+        nonlocal runs
+        if runs:
+            count("lev2.reruns")
+        runs += 1
+        return run(j0, j1, cap_, cells_)
 
     def fit(a, b, cells_):
         buf = min(cap, most)
-        hits, total = run(starts[a], starts[b], buf, cells_)
+        hits, total = counted(starts[a], starts[b], buf, cells_)
         if total <= buf:
+            count("lev2.hits", total)
             yield starts[a], starts[b], hits, total
         elif total <= most or b - a == 1:
             del hits
-            yield starts[a], starts[b], *run(starts[a], starts[b], total, None)
+            hits, total = counted(starts[a], starts[b], total, None)
+            count("lev2.hits", total)
+            yield starts[a], starts[b], hits, total
         else:
             del hits
             m = (a + b) // 2

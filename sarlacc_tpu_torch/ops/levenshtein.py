@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import count
 from . import cuda_lev2
 
 __all__ = ["lev2_condensed", "lev2_matrix", "lev2_neighbor_pairs"]
@@ -352,10 +353,12 @@ def lev2_neighbor_pairs(
     symmetric-delete filter where its heuristics hold
     (:func:`_neighbor_pairs_filtered`), else the row-block scan on
     ``device`` (default CPU) in row blocks of ``tile``
-    (:func:`_neighbor_pairs_rowblock`).  ``kcap`` is accepted for the JAX
-    signature and ignored: it sizes the JAX kernel's per-row hit buffer,
-    and the port's scan appends its hits to one buffer with an exact
-    count instead.  Returns (qi, qj) int32 arrays in original index space.
+    (:func:`_neighbor_pairs_rowblock`); the profiler's counter
+    ``umi.route.filter`` or ``umi.route.rowblock`` gains the call.
+    ``kcap`` is accepted for the JAX signature and ignored: it sizes the
+    JAX kernel's per-row hit buffer, and the port's scan appends its hits
+    to one buffer with an exact count instead.  Returns (qi, qj) int32
+    arrays in original index space.
     """
     n_reads = codes.shape[0]
     if n_reads == 0:
@@ -380,6 +383,7 @@ def lev2_neighbor_pairs(
 
     thr = 2 * int(limit)
     pairs = _neighbor_pairs_filtered(codes, lengths, int(limit), thr)
+    count("umi.route.filter" if pairs is not None else "umi.route.rowblock")
     if pairs is None:
         pairs = _neighbor_pairs_rowblock(codes, lengths, thr, int(limit), tile, device)
     ua, ub = pairs

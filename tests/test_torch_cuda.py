@@ -1359,6 +1359,32 @@ def test_lev2_hits_split_beyond_the_budget(cuda_device, monkeypatch, route_L):
 
 
 @pytest.mark.cuda
+def test_lev2_hits_counters(cuda_device, monkeypatch):
+    """The profiler's ``lev2.*`` counters on the card: a buffer of one key
+    forces one re-run; the cells are counted once, as the ``cells=``
+    tensor counts them, and the hits are the plain version's."""
+    from sarlacc_tpu_torch.ops import cuda_lev2, levenshtein
+    from sarlacc_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(18)
+    codes, lengths = _umi_rows(rng, 2000, 22, 0.0, 16)
+    perm = np.argsort(lengths, kind="stable")
+    s_len = lengths[perm]
+    c = torch.as_tensor(codes[perm][:, : int(s_len[-1])].astype(np.int8), device=cuda_device)
+    ln = torch.as_tensor(s_len, device=cuda_device)
+    want = levenshtein._rowblock_hits_plain(c, ln, s_len, 6, 3, 512)
+    cells = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    prof = profiling.PipelineProfiler()
+    monkeypatch.setattr(profiling, "_GLOBAL", prof)
+    got = cuda_lev2.lev2_hits(c, ln, s_len, 6, 3, 512, cells=cells, cap=1)
+    n_jobs = cuda_lev2.rowblock_jobs(s_len, 3, 512).shape[0]
+    assert torch.equal(got, want)
+    assert prof.counters == {"lev2.cells": int(cells), "lev2.hits": want.numel(),
+                             "lev2.reruns": 1,
+                             "lev2.in_bytes": c.numel() + 4 * c.shape[0] + 16 * n_jobs}
+
+
+@pytest.mark.cuda
 def test_rowblock_scan_reads_back_twice(cuda_device, monkeypatch):
     """``_neighbor_pairs_rowblock`` on the card: no [TI, TJ] distance
     matrix (kernel I's full-DP forms never launch), no ``torch.nonzero``,

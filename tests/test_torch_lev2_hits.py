@@ -304,3 +304,75 @@ def test_hits_wrapper_takes_cuda_tensors_only():
     assert cuda_lev2.HITS_KERNEL.launches == before
     assert [cuda_lev2.hits_route(W, t) for W, t in ((30, 4), (64, 30), (65, 4), (30, 32))] == \
         ["band_reg", "band_reg", "band_scratch", "band_scratch"]
+
+
+def _emulated_launch(codes, lens, thr, jobs, hits, found, cells, route, scratch, blocks):
+    """One launch of csrc/lev2_kernel.cu's thresholded form by the
+    transliteration, on CPU tensors: hits appended up to the buffer, the
+    exact count into ``found``, the DP cells added to ``cells``."""
+    c, s_len = codes.numpy(), lens.numpy()
+    n = c.shape[0]
+    I, J = [], []
+    for r0, r1, c0, c1 in jobs.tolist():
+        i = np.repeat(np.arange(r0, r1), c1 - c0)
+        j = np.tile(np.arange(c0, c1), r1 - r0)
+        I.append(i[j >= i])
+        J.append(j[j >= i])
+    I, J = np.concatenate(I), np.concatenate(J)
+    hit, cl = _band(c, s_len, I, J, thr, route == "band_reg")
+    keys = I[hit] * n + J[hit]
+    k = min(keys.size, hits.numel())
+    hits[:k] = torch.as_tensor(keys[:k])
+    found[0] = keys.size
+    if cells is not None:
+        cells += int(cl.sum())
+
+
+@pytest.mark.parametrize("cap", [None, 1])
+def test_wrapper_counts_cells_hits_and_reruns(monkeypatch, cap):
+    """The wrapper around launches emulated on the CPU: the plain
+    version's hits, and the profiler's ``lev2.*`` counters: the DP cells
+    once (not again on the re-run a buffer of one key forces), the hits,
+    the inputs' bytes, and one re-run."""
+    from sarlacc_tpu_torch.utils import profiling
+
+    codes, lengths = _umi_codes(260, 20, 5, n_rate=0.03)
+    c, s_len, _ = _sorted_inputs(codes, lengths)
+    n, thr, limit, tile = c.shape[0], 6, 3, 100
+    monkeypatch.setattr(cuda_lev2, "check_tensor", lambda *a: None)
+    monkeypatch.setattr(cuda_lev2, "_launch_hits", _emulated_launch)
+    prof = profiling.PipelineProfiler()
+    monkeypatch.setattr(profiling, "_GLOBAL", prof)
+    cells = torch.zeros(1, dtype=torch.int64)
+    got = cuda_lev2.lev2_hits(torch.tensor(c), torch.tensor(s_len), s_len, thr, limit, tile,
+                              cells=cells, cap=cap)
+    want, count, n_cells = _transliteration(c, s_len, thr, limit, tile)
+    plain = levenshtein._rowblock_hits_plain(torch.tensor(c), torch.tensor(s_len), s_len, thr,
+                                             limit, tile)
+    assert got.tolist() == want.tolist() == plain.tolist()
+    n_jobs = cuda_lev2.rowblock_jobs(s_len, limit, tile).shape[0]
+    assert prof.counters == {"lev2.cells": n_cells, "lev2.hits": count,
+                             "lev2.in_bytes": c.size + 4 * n + 16 * n_jobs,
+                             **({"lev2.reruns": 1} if cap else {})}
+    assert int(cells) == n_cells > 0 and count > n
+
+
+def test_fit_counts_reruns_and_splits(monkeypatch):
+    """``fit_hits`` counts every run after the first, re-runs and the runs
+    of split parts alike, and every part's hits."""
+    from sarlacc_tpu_torch.utils import profiling
+
+    prof = profiling.PipelineProfiler()
+    monkeypatch.setattr(profiling, "_GLOBAL", prof)
+    tile_hits = [5, 40, 7, 9, 30]
+    starts = [0, 2, 3, 6, 8, 9]
+
+    def run(j0, j1, cap, cells):
+        total = sum(h for h, a, b in zip(tile_hits, starts, starts[1:]) if j0 <= a and b <= j1)
+        calls.append((j0, j1))
+        return None, total
+
+    calls = []
+    list(cuda_lev2.fit_hits(run, starts, 16, 25, "cells"))
+    assert prof.counters == {"lev2.reruns": len(calls) - 1, "lev2.hits": sum(tile_hits)}
+    assert len(calls) > 5

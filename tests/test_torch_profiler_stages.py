@@ -49,12 +49,18 @@ JAX_ONLY = {"msa.merge_pack"}
 #: reads' rows in the aligned frame; ``calib.scramble``: their ends and
 #: scrambles; ``calib.stack``: the stacked scrambles uploaded;
 #: ``calib.strand``: the scrambles' strand; ``calib.threshold``: the two
-#: FDR thresholds.
+#: FDR thresholds; ``umi.*``: ``umi_group``'s masking, duplicate collapse,
+#: neighbour search, neighbour lists, two-UMI intersection and clusterer.
 PORT_ONLY = {
     "adaptor.chunk", "adaptor.ends", "adaptor.stack", "adaptor.orient", "adaptor.assemble",
     "align.windows", "align.sections",
     "calib.rows", "calib.scramble", "calib.stack", "calib.strand", "calib.threshold",
+    "umi.mask", "umi.unique", "umi.scan", "umi.csr", "umi.intersect", "umi.cluster",
 }
+#: Port-only stages the pipeline run leaves out: its reads fit in one
+#: chunk, and it groups one UMI of a few reads on the dense route (no
+#: duplicate collapse, no second UMI).
+UNRUN = {"adaptor.chunk", "umi.unique", "umi.intersect"}
 
 #: Stages whose ``calls`` count launches or chunks, which the port cuts its
 #: own way.  ``align.score_only``: the port scores every barcode, and every
@@ -157,7 +163,7 @@ def test_stage_names_equal(stages):
     jax_names, torch_names = set(stages["jax"]), set(stages["torch"])
     assert JAX_ONLY <= jax_names
     assert not PORT_ONLY & jax_names
-    assert PORT_ONLY - torch_names == {"adaptor.chunk"}  # the reads fit in one chunk
+    assert PORT_ONLY - torch_names == UNRUN
     assert torch_names - PORT_ONLY == jax_names - JAX_ONLY
     for name in ENTRY_POINTS + ["align.fit", "align.score_only", "consensus.encode",
                                 "msa.merge_cost", "msa.merge_kernel", "msa.merge_readback",

@@ -23,7 +23,9 @@ from its result), ``umi.intersect`` (the two UMIs' lists intersected) and
 strings; the counters ``umi.route.dense`` (dense searches),
 ``umi.unique_strings`` (strings of the sparse searches) and, from
 :func:`..ops.levenshtein.lev2_neighbor_pairs`, ``umi.route.filter`` and
-``umi.route.rowblock`` count the routes taken.
+``umi.route.rowblock`` count the routes taken; the duplicate collapse
+counts ``unique_rows.packed`` (rows packed into base-6 words) or
+``unique_rows.fallback`` (``np.unique(axis=0)``).
 """
 
 from __future__ import annotations

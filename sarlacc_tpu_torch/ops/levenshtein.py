@@ -163,22 +163,46 @@ def lev2_condensed(
     return out
 
 
+#: Base-6 positions a uint64 word holds (6^24 < 2^64).
+_PACK_POSITIONS = 24
+
+
 def _unique_rows(codes: np.ndarray):
-    """np.unique(codes, axis=0) with all four returns, but ~20x faster for
-    short code rows: rows pack into one big-endian base-6 uint64 key (codes
-    are 0..5 incl. pad), preserving np.unique's row-lexicographic order, so
-    the sort runs on scalars instead of void views."""
+    """np.unique(codes, axis=0) with all four returns, but ~10-20x faster:
+    each row packs into ceil(W / 24) big-endian base-6 uint64 words (codes
+    are 0..5 incl. pad), word 0 holding positions 0-23, so comparing the
+    words left to right is np.unique's row-lexicographic order and the sort
+    runs on scalars instead of void views.  One stable np.lexsort, word 0
+    primary, sorts them; its first row of each run is the first occurrence.
+    Codes outside 0..5, or no rows, take np.unique itself.  Counts
+    ``unique_rows.packed`` or ``unique_rows.fallback`` a call."""
     n, W = codes.shape
-    if n == 0 or W > 24 or (W and (codes.min() < 0 or codes.max() > 5)):
+    if n == 0 or (W and (codes.min() < 0 or codes.max() > 5)):
+        count("unique_rows.fallback")
         return np.unique(
             codes, axis=0, return_index=True, return_inverse=True,
             return_counts=True,
         )
-    w6 = np.power(np.uint64(6), np.arange(W - 1, -1, -1, dtype=np.uint64))
-    keys = codes.astype(np.uint64) @ w6
-    _, first_idx, inv, cnt = np.unique(
-        keys, return_index=True, return_inverse=True, return_counts=True
-    )
+    count("unique_rows.packed")
+    words = []
+    six = np.uint64(6)
+    for s in range(0, max(W, 1), _PACK_POSITIONS):  # W == 0: one zero word
+        word = np.zeros(n, np.uint64)
+        for j in range(s, min(s + _PACK_POSITIONS, W)):  # Horner, big-endian
+            word *= six
+            word += codes[:, j].astype(np.uint64)
+        words.append(word)
+    order = np.lexsort(words[::-1])  # the last key is the primary one
+    new_run = np.zeros(n, bool)
+    new_run[0] = True
+    for word in words:
+        sw = word[order]
+        new_run[1:] |= sw[1:] != sw[:-1]
+    starts = np.flatnonzero(new_run)
+    first_idx = order[starts]
+    inv = np.empty(n, np.intp)
+    inv[order] = np.cumsum(new_run) - 1
+    cnt = np.diff(np.append(starts, n))
     return codes[first_idx], first_idx, inv, cnt
 
 

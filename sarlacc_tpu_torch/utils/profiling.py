@@ -47,7 +47,10 @@ route ``native.triplet.calls`` (one a group), ``native.triplet.reruns``
 (extensions run again with a larger output cap), ``native.triplet.call_s``
 (thread-seconds inside the C call), ``native.triplet.python_s`` (worker
 seconds outside it), ``native.triplet.pool_s`` (the pool's wall) and
-``native.triplet.straggler_s`` (each segment's slowest worker, summed).
+``native.triplet.straggler_s`` (each segment's slowest worker, summed);
+``unique_rows.packed`` and ``unique_rows.fallback`` count the duplicate
+collapses that sorted packed base-6 words or fell back to
+``np.unique(axis=0)``.
 Only the thread that runs the entry point records stages and counters.
 
 ``msa.merge_pack`` is the JAX package's only stage with no counterpart: it

@@ -27,6 +27,7 @@ from sarlacc_tpu.api.umi import umi_group as jax_umi_group  # noqa: E402
 from sarlacc_tpu.ops.levenshtein import lev2_condensed as jax_lev2_condensed  # noqa: E402
 from sarlacc_tpu.ops.levenshtein import lev2_matrix as jax_lev2_matrix  # noqa: E402
 from sarlacc_tpu.ops.levenshtein import lev2_neighbor_pairs as jax_neighbor_pairs  # noqa: E402
+from sarlacc_tpu.ops.levenshtein import _unique_rows as jax_unique_rows  # noqa: E402
 from sarlacc_tpu_torch.api.umi import SPARSE_MIN, expected_dist, quality_mask, umi_group  # noqa: E402
 from sarlacc_tpu_torch.core.encode import SeqBatch, encode_batch  # noqa: E402
 from sarlacc_tpu_torch.native import greedy_cluster_native  # noqa: E402
@@ -38,6 +39,8 @@ from sarlacc_tpu_torch.ops.levenshtein import (  # noqa: E402
     lev2_neighbor_pairs,
 )
 from sarlacc_tpu_torch.refimpl.cluster import cluster_umis  # noqa: E402
+from sarlacc_tpu_torch.utils import profiling  # noqa: E402
+from sarlacc_tpu_torch.utils.profiling import PipelineProfiler  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -131,6 +134,107 @@ def test_rowblock_equals_filter_and_dense(limit):
     want = [(i, j) for i in range(len(codes)) for j in range(i, len(codes)) if mat[i, j] <= 2 * limit]
     assert norm(ri, rj) == want
     assert norm(fi, fj) == want
+
+
+def _np_unique_rows(codes):
+    return np.unique(codes, axis=0, return_index=True, return_inverse=True, return_counts=True)
+
+
+def _code_rows(rng, kind, width):
+    """int8 code rows of one ``kind``: ``dup`` (300 rows of 12 strings,
+    pads (5) past each row's length, N (4) sprinkled, six of them copies of
+    the others but at the last position or at position 24, the first of
+    the second base-6 word), ``equal`` (one padded row 40 times),
+    ``distinct`` (no two rows alike), ``n0``, ``n1``."""
+    if kind == "n0":
+        return np.zeros((0, width), np.int8)
+    if kind == "distinct":
+        if width == 1:
+            return rng.permutation(6).astype(np.int8)[:, None]
+        rows = np.unique(rng.integers(0, 6, (200, width)), axis=0)
+        return rows[rng.permutation(len(rows))].astype(np.int8)
+    base = rng.integers(0, 4, (12, width)).astype(np.int8)
+    lens = rng.integers(max(width - 6, 0), width + 1, 12)
+    base[np.arange(width)[None, :] >= lens[:, None]] = 5
+    base[rng.random((12, width)) < 0.05] = 4
+    base[6:] = base[:6]
+    base[6:9, width - 1] = (base[6:9, width - 1] + 1) % 6
+    base[9:, min(24, width - 1)] = (base[9:, min(24, width - 1)] + 1) % 6
+    take = {"dup": rng.integers(0, 12, 300), "equal": np.zeros(40, int), "n1": [3]}[kind]
+    return np.ascontiguousarray(base[take])
+
+
+@pytest.mark.parametrize("kind", ["dup", "equal", "distinct", "n0", "n1"])
+@pytest.mark.parametrize("width", [1, 23, 24, 25, 30, 47, 48, 49, 60])
+def test_unique_rows_equal_np_unique(monkeypatch, width, kind):
+    """``_unique_rows`` returns what ``np.unique(axis=0)`` and the JAX
+    package's ``_unique_rows`` return (unique rows, first indices, inverse,
+    counts, dtypes included) on one base-6 word (W <= 24) and on several
+    (W > 24), and counts the packed route for every non-empty input."""
+    prof = PipelineProfiler()
+    monkeypatch.setattr(profiling, "_GLOBAL", prof)
+    codes = _code_rows(np.random.default_rng(width * 10 + len(kind)), kind, width)
+    if kind == "distinct":
+        assert len(np.unique(codes, axis=0)) == len(codes)
+    got = lev_mod._unique_rows(codes)
+    for want in (_np_unique_rows(codes), jax_unique_rows(codes)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w.reshape(g.shape))
+            assert g.dtype == w.dtype
+        assert got[0].shape == want[0].shape and got[2].shape == (len(codes),)
+    route = "unique_rows.fallback" if kind == "n0" else "unique_rows.packed"
+    assert prof.counters == {route: 1}
+
+
+@pytest.mark.parametrize("bad", [-1, 6])
+def test_unique_rows_fallback_outside_codes(monkeypatch, bad):
+    """A code outside 0..5 cannot pack into base-6 words: the rows take
+    ``np.unique(axis=0)`` itself, and count the fallback."""
+    prof = PipelineProfiler()
+    monkeypatch.setattr(profiling, "_GLOBAL", prof)
+    codes = _code_rows(np.random.default_rng(9), "dup", 30)
+    codes[7, 2] = bad
+    got = lev_mod._unique_rows(codes)
+    for g, w in zip(got, _np_unique_rows(codes)):
+        np.testing.assert_array_equal(g, w)
+    assert prof.counters == {"unique_rows.fallback": 1}
+
+
+def test_unique_rows_zero_width(monkeypatch):
+    """Rows of no positions pack into one zero word: all of them are one
+    row, as ``np.unique(axis=0)`` and the JAX package's ``_unique_rows``
+    say."""
+    prof = PipelineProfiler()
+    monkeypatch.setattr(profiling, "_GLOBAL", prof)
+    codes = np.zeros((5, 0), np.int8)
+    got = lev_mod._unique_rows(codes)
+    for want in (_np_unique_rows(codes), jax_unique_rows(codes)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w.reshape(g.shape))
+            assert g.dtype == w.dtype and g.shape == w.shape
+    assert prof.counters == {"unique_rows.packed": 1}
+
+
+def test_umi_group_dual_wide_equal_np_unique(monkeypatch):
+    """Two UMIs of 30 bases on the sparse path (``SPARSE_MIN`` forced low
+    on both sides), rows up to 30-odd positions wide: the groups equal the
+    JAX ``umi_group``'s on the same input, and those of the same call with
+    the duplicate collapse done by ``np.unique(axis=0)``."""
+    rng = np.random.default_rng(90)
+    u1 = _umis(rng, 40, 6, length=30, n_rate=0.01)
+    u2 = _umis(rng, 40, 6, length=30, n_rate=0.01)
+    n = min(len(u1), len(u2))
+    u1, u2 = u1[:n] + [u1[2]] * 5, u2[:n] + [u2[2]] * 5
+    assert encode_batch(u1)[0].shape[1] > 24 and encode_batch(u2)[0].shape[1] > 24
+    monkeypatch.setattr(jax_umi_mod, "SPARSE_MIN", 16)
+    monkeypatch.setattr(umi_mod, "SPARSE_MIN", 16)
+    got = umi_group(u1, threshold1=3, umi2=u2, threshold2=2, device="cpu")
+    jax_want = jax_umi_group(u1, threshold1=3, umi2=u2, threshold2=2)
+    monkeypatch.setattr(umi_mod, "_unique_rows", _np_unique_rows)
+    want = umi_group(u1, threshold1=3, umi2=u2, threshold2=2, device="cpu")
+    assert sorted(int(i) for g in got for i in g) == list(range(len(u1)))
+    assert [g.tolist() for g in got] == [np.asarray(g).tolist() for g in jax_want]
+    assert [g.tolist() for g in got] == [g.tolist() for g in want]
 
 
 @pytest.mark.parametrize("length,threshold", [(30, 2), (20, 3)])

@@ -123,3 +123,18 @@ def test_route_counters(fresh, monkeypatch, L, threshold, sparse_min, route):
         want = sum(len(set(b.seq_strings())) for b in (u1, u2))
         assert c["umi.unique_strings"] == want
     assert not {k for k in c if k.startswith("lev2.")}  # kernel I's counters: the card's alone
+
+
+@pytest.mark.parametrize("sparse_min,packed", [(16, 2), (4096, 0)])
+def test_unique_rows_counters(fresh, monkeypatch, sparse_min, packed):
+    """Two 30-base UMIs (rows wider than one base-6 word): the sparse path
+    collapses each UMI's duplicates on the packed route, once a UMI, and
+    never falls back to ``np.unique(axis=0)``; the dense route collapses
+    nothing."""
+    monkeypatch.setattr(umi, "SPARSE_MIN", sparse_min)
+    u1, u2 = _families(10, 4, 30, 7)
+    assert u1.codes.shape[1] > 24 and u2.codes.shape[1] > 24
+    umi.umi_group(u1, threshold1=3, umi2=u2, threshold2=3, device="cpu")
+    c = fresh.counters
+    assert c.get("unique_rows.packed", 0) == packed
+    assert "unique_rows.fallback" not in c

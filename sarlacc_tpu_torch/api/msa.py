@@ -47,6 +47,7 @@ from ..ops.msa import (
     merge_wave_from_library,
     pair_maps_device,
 )
+from ..ops.cuda_extend import MAX_SLOTS
 from ..parallel.context import mesh_device, use_mesh
 from ..refimpl.masking import unmask_alignment
 from ..utils.profiling import count, profiled, profiler
@@ -383,26 +384,35 @@ def _build_library_host(
     return (lib_tab, np.float32(1.0 / w_scale)), pair_seg, idents
 
 
+def _slot_bucket(g: int) -> int:
+    """A group of ``g`` reads' slot bucket: the pow2 bucket of g - 1 (the
+    base slot plus one per middle sequence)."""
+    return _bkt(max(g - 1, 1), 2)
+
+
+def _fits_slots(g: int) -> bool:
+    """Whether a group of ``g`` reads fits kernel H's slots: a segment that
+    holds one that does not takes the host library route."""
+    return _slot_bucket(g) <= MAX_SLOTS
+
+
 def _device_lib_ok(lengths, by_group, active, device, budget_bytes: int | None = None) -> bool:
     """Size guard for the device library route.
 
-    The extension's duplicate sum runs over at most 32 slots (SL = the pow2
-    bucket of g-1), and the JAX package's packed table grows as
+    The extension's duplicate sum runs over at most :data:`MAX_SLOTS` slots
+    (:func:`_fits_slots`), and the JAX package's packed table grows as
     O(#pairs * SL * stride); a segment with a group too large for either
     takes the host route, as there.  ``budget_bytes`` defaults to 1/8 of the
     card's free memory (2 GiB on the CPU).
     """
     if budget_bytes is None:
         budget_bytes = memory_budget(device, 0.125, 1 << 31, "lib_table")
-    sl_max = 1
     npairs_sl = 0  # sum over pairs of their slot bucket
     for gi in active:
         g = by_group[gi].size
-        sl = _bkt(max(g - 1, 1), 2)
-        sl_max = max(sl_max, sl)
-        npairs_sl += (g * (g - 1) // 2) * sl
-    if sl_max > 32:
-        return False
+        if not _fits_slots(g):
+            return False
+        npairs_sl += (g * (g - 1) // 2) * _slot_bucket(g)
     lmax = (
         int(lengths[np.concatenate([by_group[gi] for gi in active])].max(initial=1))
         if active else 1
@@ -414,7 +424,7 @@ def _device_lib_ok(lengths, by_group, active, device, budget_bytes: int | None =
 #: Slot classes of the extension's launches (SL >= g - 1: the base slot
 #: plus one per middle sequence), finer than pow2 so that g - 1 = 10 (a
 #: common family size) does not pay for 16 slots.
-_SL_LADDER = (2, 4, 6, 8, 10, 12, 16, 20, 24, 32)
+_SL_LADDER = (2, 4, 6, 8, 10, 12, 16, 20, 24, MAX_SLOTS)
 
 
 def _sl_class(v: int) -> int:
@@ -536,15 +546,14 @@ def _group_lib_bytes(lengths, idx) -> int:
     g = idx.size
     if g < 2:
         return 0
-    sl = _bkt(max(g - 1, 1), 2)
     stride = _bkt(int(lengths[idx].max(initial=1)) + 1, 128)
-    return (g * (g - 1) // 2) * sl * stride * 6
+    return (g * (g - 1) // 2) * _slot_bucket(g) * stride * 6
 
 
 def _segments(lengths, by_group, active, seg_budget) -> list[list[int]]:
     """Pack the active groups, in order, into segments whose estimated
-    library fits ``seg_budget``.  Groups whose slot bucket exceeds 32
-    segment separately, so that one oversized group (which
+    library fits ``seg_budget``.  Groups that do not fit kernel H's slots
+    (:func:`_fits_slots`) segment separately, so that one oversized group (which
     :func:`_device_lib_ok` sends to the host route) does not take its
     neighbours with it."""
     segments: list[list[int]] = []
@@ -552,8 +561,7 @@ def _segments(lengths, by_group, active, seg_budget) -> list[list[int]]:
         cur: list[int] = []
         cur_bytes = 0
         for gi in active:
-            g = by_group[gi].size
-            if (_bkt(max(g - 1, 1), 2) <= 32) != eligible:
+            if _fits_slots(by_group[gi].size) != eligible:
                 continue
             b = _group_lib_bytes(lengths, by_group[gi])
             if cur and cur_bytes + b > seg_budget:

@@ -128,15 +128,11 @@ def _neighbor_csr(
 
         # Reads per unique, index order (== DFS order within a duplicate block:
         # the stable lexsort keeps equal strings in index order).
-        order_by_uid = np.argsort(inv, kind="stable").astype(np.int64)
-        uid_off = np.concatenate([[0], np.cumsum(cnt)])
+        _, _, reads_of = _reads_by_unique(inv, cnt)
 
         # Expand each unique-level neighbour v to its reads R_v.
-        lens_e = cnt[va]
-        e_cum = np.concatenate([[0], np.cumsum(lens_e)])
-        total = int(e_cum[-1])
-        offs = np.repeat(uid_off[va] - e_cum[:-1], lens_e)
-        L_flat = order_by_uid[offs + np.arange(total)].astype(np.int32)
+        L_flat, e_cum = reads_of(va)
+        L_flat = L_flat.astype(np.int32)
         exp_start_u = e_cum[u_off[:-1]]
         exp_end_u = e_cum[u_off[1:]]
 
@@ -162,6 +158,24 @@ def _unique_pairs(codes: np.ndarray, lengths: np.ndarray, limit: int, device):
             u_codes.astype(np.int32), u_lens, limit, assume_unique=True, device=device
         )
     return u_codes, inv, cnt, u_lens, qi, qj
+
+
+def _reads_by_unique(inv, cnt):
+    """Each unique string's reads, in index order (a stable sort of
+    ``inv``, each read's unique): (order_by_uid int64, uid_off, reads_of),
+    the reads of unique u being ``order_by_uid[uid_off[u]:uid_off[u + 1]]``;
+    ``reads_of(uids)`` gathers the reads of ``uids``, one unique's after
+    another, and returns them with their offsets e_cum (``len(uids) + 1``)."""
+    order_by_uid = np.argsort(inv, kind="stable").astype(np.int64)
+    uid_off = np.concatenate([[0], np.cumsum(cnt)])
+
+    def reads_of(uids):
+        lens = cnt[uids]
+        e_cum = np.concatenate([[0], np.cumsum(lens)])
+        offs = np.repeat(uid_off[uids] - e_cum[:-1], lens)
+        return order_by_uid[offs + np.arange(int(e_cum[-1]))], e_cum
+
+    return order_by_uid, uid_off, reads_of
 
 
 def _dfs_pairs(u_codes, u_lens, qi, qj):
@@ -197,8 +211,7 @@ def _group_large_single(
         ua, va = _dfs_pairs(u_codes, u_lens, qi, qj)
         u_off = np.concatenate([[0], np.cumsum(np.bincount(ua, minlength=m))])
 
-        order_by_uid = np.argsort(inv, kind="stable").astype(np.int64)
-        uid_off = np.concatenate([[0], np.cumsum(cnt)])
+        order_by_uid, uid_off, reads_of = _reads_by_unique(inv, cnt)
         maxidx = order_by_uid[uid_off[1:] - 1]  # stable sort: block max is last
 
     with profiler("umi.cluster", items=codes.shape[0]):
@@ -207,11 +220,7 @@ def _group_large_single(
         )
         # Expand unique members back to read indices (reads of each unique in
         # ascending index order, matching the read-level claim loop).
-        lens_m = cnt[members]
-        e_cum = np.concatenate([[0], np.cumsum(lens_m)])
-        total = int(e_cum[-1])
-        offs_flat = np.repeat(uid_off[members] - e_cum[:-1], lens_m)
-        flat_reads = order_by_uid[offs_flat + np.arange(total)]
+        flat_reads, e_cum = reads_of(members)
         read_offs = e_cum[offs]
         return [
             flat_reads[read_offs[c] : read_offs[c + 1]]

@@ -1,6 +1,7 @@
 """Kernels A, B, E, F and G of several checkouts of the port, timed in turns on one card.
 
     python -m sarlacc_tpu_torch.tools.kernel_turns [--shapes FILE] [--kernels ABEFGS] ROOT [ROOT ...]
+    python -m sarlacc_tpu_torch.tools.kernel_turns --record FILE
 
 Each ROOT is a directory that holds a ``sarlacc_tpu_torch`` package (this
 checkout is ``.``; another is, say, a ``git archive`` of the parent
@@ -14,17 +15,16 @@ same inputs, all made from seeds or read from FILE:
   reads against 500 bp of read 0, global, R = 500); and at R = 150 global
   over the stacked ends;
 * kernel B at one bucket of 4096 pipeline-shaped pairs x 1024 rows x W 256,
-  on its wide route at ``chip_smoke.py``'s two synthetic shapes (64 pairs
-  of 128-256-bp reads in 4.0-4.6-kb ones, W 8192; 4 pairs in 31-32-kb
-  ones at bandwidth 16 500, W 65 536), and at each launch shape in FILE's
-  ``"B"`` (``chip_smoke.py --save-shapes FILE`` writes the arguments of
-  every distinct (P, rows, W) the pipeline's warm-up pass sent to
-  ``banded_pair``, and of every (rows, W) of the long_reads phase's);
+  on its wide route at two synthetic shapes (64 pairs of 128-256-bp reads
+  in 4.0-4.6-kb ones, W 8192; 4 pairs in 31-32-kb ones at bandwidth
+  16 500, W 65 536), and at each launch shape in FILE's ``"B"`` (the
+  arguments of every distinct (P, rows, W) a pass of the pipeline sent to
+  ``banded_pair``);
 * kernel F (``pair_walk``) on the directions the root's kernel B gives for
   each of those buckets (kernel B is bit-identical across the roots);
 * kernel E's whole wave path, ``ops/msa.py::merge_wave_from_library`` on
-  each merge wave in FILE's ``"E"`` (every wave of the pipeline's warm-up
-  pass, with the library entries it reads): the host tables, the cost
+  each merge wave in FILE's ``"E"`` (a wave of each shape of a pass of the
+  pipeline, with the library entries it reads): the host tables, the cost
   build and the kernel, whatever the root does for them, timed by the host
   clock around each call and a synchronise;
 * kernel G's qmap walk (``G``) on the directions the root's kernel A gives
@@ -44,6 +44,11 @@ waves up to 2^27 band cells); the runs' outputs must also agree with each
 other.  ``--kernels`` picks the kernels timed (kernel B still runs for F's
 directions).  Giving roots as parent, change, change, parent measures the
 versions within one call.  It needs the card.
+
+``--record FILE`` writes FILE: one pass of ``tools/workload.py``'s
+``run_pipeline`` on ``build_workload()`` (the bench batch) with this
+checkout's package, recording kernel B's launch arguments and the merge
+waves as it runs (:func:`record`).
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ import os
 import subprocess
 import sys
 
-__all__ = ["main", "run_root", "wide_pair_args"]
+__all__ = ["main", "record", "run_root", "wide_pair_args"]
 
 ADAPTOR1 = "ACGCTAGCATCAGTC" + "NNNN" + "CACAGCTACGA" + "N" * 12 + "CGTACGCAT"  # bench.py:108
 ADAPTOR2 = "TGCATCGATCGCAT"
@@ -64,7 +69,7 @@ def wide_pair_args(torch, dev, P, rows, lb_range, bw, W, seed):
     """banded_pair arguments for P pairs whose A reads (``rows`` // 2 to
     ``rows`` bases) sit, 80% kept, inside B reads of ``lb_range`` bases:
     bands of |lb - la| + 2 ``bw`` + 1 cells, within ``W`` (kernel B's wide
-    route in ``chip_smoke.py`` and here)."""
+    route)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -134,7 +139,7 @@ def _inputs(torch, st, dev, shapes, kernels):
                                   ad.mismatch_tab, 5.0, 1.0, local=local)
             cases[name] = (name[0], (dirs, lengths))
 
-    # chip_smoke.py's bucket: 4096 length-sorted neighbours of 513-1024 bp.
+    # A pipeline-shaped bucket: 4096 length-sorted neighbours of 513-1024 bp.
     rows, W, bw = 1024, 256, 100
     lens = batch.lengths.astype(np.int64)
     cand = np.flatnonzero((lens > 512) & (lens <= rows))
@@ -163,7 +168,7 @@ def _inputs(torch, st, dev, shapes, kernels):
         buckets[f"wide:P{P}xR256xW{W_}"] = wide_pair_args(torch, dev, P, 256, lb_range, bw_, W_,
                                                           seed)
     saved = torch.load(shapes, weights_only=False) if shapes else {}
-    for name, args in saved.get("B", {}).items():  # "pipeline:PxRxW", "long_reads:PxRxW"
+    for name, args in saved.get("B", {}).items():  # "pipeline:PxRxW"
         buckets[name] = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
     for name, args in buckets.items():
         for which in "BF":
@@ -173,6 +178,58 @@ def _inputs(torch, st, dev, shapes, kernels):
         for name, wave in saved.get("E", {}).items():
             cases[f"{name}:wave"] = ("E", wave)
     return cases
+
+
+def record(path: str, device=None, workload=None) -> dict:
+    """One pass of :func:`.workload.run_pipeline` on ``workload`` ((adaptor1,
+    adaptor2, reads); ``build_workload()``'s by default) on ``device``
+    (``None`` means CUDA), saved to ``path`` for ``--shapes``: under
+    ``"B"``, for each distinct (P, rows, W) that ``ops/msa.py`` sent to
+    ``banded_pair``, the first call's arguments on the host, named
+    ``pipeline:P{P}xR{rows}xW{W}``; under ``"E"``, for each distinct (P,
+    rows, W), the first merge wave that ``api/msa.py`` sent to
+    ``merge_wave_from_library``, as (its library cut down to the entries the
+    wave reads, its descriptors with their segments moved onto the cut,
+    rows, W), named ``pipeline:E:P{P}xR{rows}xW{W}``.  Returns what it
+    saved."""
+    import torch
+
+    from sarlacc_tpu_torch.api import msa as api_msa
+    from sarlacc_tpu_torch.ops import msa as ops_msa
+    from sarlacc_tpu_torch.tools.workload import build_workload, run_pipeline
+
+    saved = {"B": {}, "E": {}}
+    pair, wave = ops_msa.banded_pair, api_msa.merge_wave_from_library
+
+    def recording_pair(*args):
+        name = f"pipeline:P{int(args[0].shape[0])}xR{int(args[10])}xW{int(args[11])}"
+        if name not in saved["B"]:
+            saved["B"][name] = tuple(a.to("cpu", copy=True) if torch.is_tensor(a) else a
+                                     for a in args)
+        return pair(*args)
+
+    def recording_wave(lib, descs, rows, W):
+        name = f"pipeline:E:P{len(descs)}xR{rows}xW{W}"
+        if name not in saved["E"]:
+            tab, w_inv = lib
+            parts, cut, at = [], [], 0
+            for d in descs:
+                segs = []
+                for (start, length, aoff, boff, swap) in d["segments"]:
+                    parts.append(tab[start : start + length])
+                    segs.append((at, length, aoff, boff, swap))
+                    at += length
+                cut.append({**d, "segments": segs})
+            saved["E"][name] = ((torch.cat(parts or [tab[:0]]).cpu(), w_inv), cut, rows, W)
+        return wave(lib, descs, rows, W)
+
+    ops_msa.banded_pair, api_msa.merge_wave_from_library = recording_pair, recording_wave
+    try:
+        run_pipeline(*(workload or build_workload()), device=device)
+    finally:
+        ops_msa.banded_pair, api_msa.merge_wave_from_library = pair, wave
+    torch.save(saved, path)
+    return saved
 
 
 def _checksum(torch, t, chunk: int = 1 << 26) -> float:
@@ -288,6 +345,10 @@ def main(argv=None) -> int:
     if argv[:1] == ["--worker"]:
         _, root, shapes, kernels = argv
         print(json.dumps(run_root(root, shapes or None, kernels)), flush=True)
+        return 0
+    if argv[:1] == ["--record"] and len(argv) == 2:
+        saved = record(os.path.abspath(argv[1]))
+        print(json.dumps({"recorded": argv[1], "B": sorted(saved["B"]), "E": sorted(saved["E"])}))
         return 0
     shapes, kernels = "", "ABEFGS"
     while argv[:1] in (["--shapes"], ["--kernels"]):

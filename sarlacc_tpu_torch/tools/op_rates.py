@@ -96,8 +96,8 @@ WARP_SPLIT_CENSUS = {
 #: row-tile cell with its flags): ``no-vgap`` drops ``V``, ``B`` and their
 #: two maxes (3 adds, 2 maxes); ``no-dyncost`` takes its cost once a row,
 #: so no shared load and no address a cell; ``no-rowload`` changes only the
-#: per-row fetch.  The float ops (add + max) are what ``chip_smoke.py``
-#: bounds each variant by.
+#: per-row fetch.  The float ops (add + max) are what a variant's bound
+#: counts.
 ABLATION_CENSUS = {
     "full": ROW_TILE_CENSUS,
     "no-vgap": {**ROW_TILE_CENSUS, "add": 3, "max": 2},

@@ -404,6 +404,45 @@ def test_barcode_and_tune_launch_kernel_d(cuda_device):
     assert tuned["parameters"] == st.tune_alignment(ADAPTOR, ADAPTOR2, device="cpu", **kw)["parameters"]
 
 
+@pytest.mark.cuda
+def test_calibration_on_card_equals_cpu(cuda_device, tmp_path):
+    """get_adaptor_thresholds (kernel C on the scrambles), filter_reads,
+    extract_subseq and quality_align (kernels A and G) on the card equal the
+    same calls with ``device="cpu"`` on the same aligned frame, tolerance 0."""
+    import sarlacc_tpu_torch as st
+
+    fp = str(tmp_path / "reads.fastq")
+    st.mock_reads(ADAPTOR, ADAPTOR2, fp, nmolecules=20, nreads_range=(4, 9),
+                  seqlen_range=(350, 600), seed=7)
+    batch = st.read_fastq(fp)
+    aligned = st.adaptor_align(ADAPTOR, ADAPTOR2, reads=batch, tolerance=250, device=cuda_device)
+    sections = (([16, 31], [19, 38]), ([1], [14]))
+    ref = batch.seq_strings()[0][50:350]
+    queries = batch.take(np.arange(1, 41))
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        before = (SCORE_KERNEL.launches, DIR_KERNEL.launches)
+        thr = st.get_adaptor_thresholds(aligned, reads=batch, device=dev)
+        filt = st.filter_reads(aligned, thr["threshold1"], thr["threshold2"], device=dev)
+        ext = st.extract_subseq(filt, *sections, reads=batch, device=dev)
+        qal = st.quality_align(queries, ref, device=dev)
+        launched = (SCORE_KERNEL.launches > before[0], DIR_KERNEL.launches > before[1])
+        assert launched == ((True, True) if dev == cuda_device else (False, False))
+        out[str(dev)] = thr, filt, ext, qal
+    (thr, filt, ext, qal), (thr_c, filt_c, ext_c, qal_c) = out.values()
+    assert len(filt) > 0 and len(ext["adaptor1"]["Sub2"]) == len(filt)
+    for key in ("threshold1", "threshold2"):
+        assert thr[key] == thr_c[key], key
+    for key in ("scores1", "scores2"):
+        for part in ("reads", "scrambled"):
+            np.testing.assert_array_equal(np.asarray(thr[key][part]), np.asarray(thr_c[key][part]))
+    assert list(filt.rownames) == list(filt_c.rownames)
+    _same_frames(filt, filt_c)
+    for key in ("adaptor1", "adaptor2"):
+        _same_frames(ext[key], ext_c[key])
+    _same_frames(qal, qal_c)
+
+
 # ------------------------------------------- the measurement tools' kernels
 
 
@@ -1388,13 +1427,14 @@ def test_lev2_hits_counters(cuda_device, monkeypatch):
 def test_rowblock_scan_reads_back_twice(cuda_device, monkeypatch):
     """``_neighbor_pairs_rowblock`` on the card: no [TI, TJ] distance
     matrix (kernel I's full-DP forms never launch), no ``torch.nonzero``,
-    two host readbacks (the count and the hits), and the CPU's pairs."""
+    two host readbacks (the count with the cells, then the hits), and the
+    CPU's pairs."""
     from sarlacc_tpu_torch.ops import cuda_lev2, levenshtein
 
     rng = np.random.default_rng(5)
     codes, lengths = _umi_rows(rng, 2500, 30, 0.02, 26)
     reads = []
-    real_cpu, real_int = torch.Tensor.cpu, torch.Tensor.__int__
+    real_cpu, real_int, real_tolist = torch.Tensor.cpu, torch.Tensor.__int__, torch.Tensor.tolist
 
     def cpu(self, *a, **kw):
         reads.append("cpu") if self.is_cuda else None
@@ -1404,16 +1444,21 @@ def test_rowblock_scan_reads_back_twice(cuda_device, monkeypatch):
         reads.append("int") if self.is_cuda else None
         return real_int(self)
 
+    def tolist(self):
+        reads.append("tolist") if self.is_cuda else None
+        return real_tolist(self)
+
     def no_nonzero(*a, **kw):
         raise AssertionError("torch.nonzero on the scan")
 
     full = cuda_lev2.LEV2_KERNEL.launches
     monkeypatch.setattr(torch.Tensor, "cpu", cpu)
     monkeypatch.setattr(torch.Tensor, "__int__", to_int)
+    monkeypatch.setattr(torch.Tensor, "tolist", tolist)
     monkeypatch.setattr(torch, "nonzero", no_nonzero)
     gi, gj = levenshtein._neighbor_pairs_rowblock(codes, lengths, 4, 2, 512, cuda_device)
     monkeypatch.undo()
-    assert reads == ["int", "cpu"] and cuda_lev2.LEV2_KERNEL.launches == full
+    assert reads == ["tolist", "cpu"] and cuda_lev2.LEV2_KERNEL.launches == full
     wi, wj = levenshtein._neighbor_pairs_rowblock(codes, lengths, 4, 2, 512, "cpu")
     assert np.array_equal(gi, wi) and np.array_equal(gj, wj)
 

@@ -8,7 +8,9 @@ bit; then the entry points (``barcode_align``, ``get_barcode_thresholds``,
 inputs.  Inputs are made with numpy from a seed; the JAX side runs in
 float32, as its ``prepare_adaptor`` default.  Scores agree within 2e-4 (the
 JAX tests' tolerance class, ``tests/test_adaptor_api.py:258-260``); ids,
-parameters, thresholds, strings and edits exactly.
+parameters, thresholds, strings and edits exactly.  The golden demux
+snapshot also runs on the card (its ``cuda`` case); on a machine without
+JAX the file is collected for that case alone, with ``-m cuda``.
 """
 
 import json
@@ -16,23 +18,27 @@ import os
 import pathlib
 import tempfile
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 torch.set_num_threads(1)
 
-import sarlacc_tpu as jst  # noqa: E402
+try:
+    import jax.numpy as jnp
+    import sarlacc_tpu as jst
+    from sarlacc_tpu.api.align_internal import align_scores_only as jax_align_scores_only
+    from sarlacc_tpu.api.align_internal import prepare_adaptor as jax_prepare_adaptor
+    from sarlacc_tpu.core.encode import SeqBatch
+    from sarlacc_tpu.io import fastq as jax_fastq
+    from sarlacc_tpu.ops import pallas_align as pa
+    from sarlacc_tpu.ops.align import dp_align as jax_dp_align
+    from sarlacc_tpu.ops.align import prepare_reads as jax_prepare_reads
+    from sarlacc_tpu.ops.backtrack import string_walk_device
+except ImportError:  # a card's machine has no JAX: collect the file for its cuda case (-m cuda)
+    pass
+
 import sarlacc_tpu_torch as tst  # noqa: E402
-from sarlacc_tpu.api.align_internal import align_scores_only as jax_align_scores_only  # noqa: E402
-from sarlacc_tpu.api.align_internal import prepare_adaptor as jax_prepare_adaptor  # noqa: E402
-from sarlacc_tpu.core.encode import SeqBatch  # noqa: E402
-from sarlacc_tpu.io import fastq as jax_fastq  # noqa: E402
-from sarlacc_tpu.ops import pallas_align as pa  # noqa: E402
-from sarlacc_tpu.ops.align import dp_align as jax_dp_align  # noqa: E402
-from sarlacc_tpu.ops.align import prepare_reads as jax_prepare_reads  # noqa: E402
-from sarlacc_tpu.ops.backtrack import string_walk_device  # noqa: E402
 from sarlacc_tpu_torch.api.align_internal import (  # noqa: E402
     align_scores_only,
     prepare_adaptor,
@@ -256,9 +262,13 @@ def test_barcode_align_ties_and_empty_barcode():
     assert not np.any(got["barcode"] == 2)
 
 
-def test_golden_barcode_demux_through_port():
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_golden_barcode_demux_through_port(device):
     """tests/golden/barcode_demux.json (test_golden_suite.py:127-156) through
-    the port's adaptor_align -> barcode_align -> get_barcode_thresholds."""
+    the port's adaptor_align -> barcode_align -> get_barcode_thresholds, on
+    the CPU and (``cuda`` case) through kernels A, D and G on the card."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
     rng = np.random.default_rng(11)
     barcodes = ["".join(rng.choice(list("ACGT"), 4)) for _ in range(6)]
     fp = tempfile.mktemp(suffix=".fastq")
@@ -268,10 +278,10 @@ def test_golden_barcode_demux_through_port():
         batch = tst.read_fastq(fp)
     finally:
         os.remove(fp)
-    aligned = tst.adaptor_align(ADAPTOR1, ADAPTOR2, reads=batch, tolerance=200, device="cpu")
+    aligned = tst.adaptor_align(ADAPTOR1, ADAPTOR2, reads=batch, tolerance=200, device=device)
     observed = aligned["adaptor1"]["subseq"]["Sub1"]
-    baligned = tst.barcode_align(observed, barcodes, device="cpu")
-    thr = tst.get_barcode_thresholds(baligned, nmads=3, device="cpu")
+    baligned = tst.barcode_align(observed, barcodes, device=device)
+    thr = tst.get_barcode_thresholds(baligned, nmads=3, device=device)
     snap = {
         "barcodes": barcodes,
         "observed": observed.seq_strings(),

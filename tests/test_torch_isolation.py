@@ -1,8 +1,8 @@
 """The port stands alone: nothing of JAX or of the JAX package.
 
-Every ``.py`` file of ``sarlacc_tpu_torch/`` and ``chip_smoke.py`` is parsed
-and none may import ``jax``, ``jaxlib`` or ``sarlacc_tpu``, or name the JAX
-package's directory as a path component; the host library's source and
+Every ``.py`` file of ``sarlacc_tpu_torch/`` is parsed and none may import
+``jax``, ``jaxlib`` or ``sarlacc_tpu``, or name the JAX package's directory
+as a path component; the host library's source and
 every CUDA kernel's source lie inside the port; and in a fresh interpreter
 where those three packages cannot be imported, every module of the port
 imports and the host library builds from the port's own copy.
@@ -25,7 +25,7 @@ from sarlacc_tpu_torch.native.build import CudaKernel
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "sarlacc_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "sarlacc_tpu")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py"))
 
 
 def _imports(tree):

@@ -255,6 +255,20 @@ def test_device_lib_size_guard():
         )
 
 
+@pytest.mark.parametrize("g,fits", [(2, True), (33, True), (34, False)])
+def test_slot_limit_segments_and_guard(g, fits):
+    """A group of g - 1 = 32 reads fits kernel H's slots: it packs with its
+    neighbour and the guard takes it; at g - 1 = 33 (slot bucket 64) it
+    segments alone and the guard sends it to the host route."""
+    lengths = np.full(4 + g, 200, np.int64)
+    by_group = [np.arange(0, 4), np.arange(4, 4 + g)]
+    segments = port_api_msa._segments(lengths, by_group, [0, 1], 1 << 40)
+    assert segments == ([[0, 1]] if fits else [[0], [1]])
+    assert port_api_msa._fits_slots(g) is fits
+    assert port_api_msa._device_lib_ok(lengths, by_group, [1], CPU, budget_bytes=1 << 31) is fits
+    assert bool(jax_api_msa._device_lib_ok(lengths, by_group, [1], budget_bytes=1 << 31)) is fits
+
+
 def _routes(monkeypatch):
     """Record which library route each segment takes."""
     taken = []

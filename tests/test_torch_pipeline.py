@@ -2,7 +2,7 @@
 
 The seed-locked golden snapshot of test_golden_pipeline.py, produced by the
 JAX package, must come out byte for byte through the port's five entry
-points.  The port must import without JAX, and every entry point must
+points, on the CPU and (``cuda`` case) on the card.  The port must import without JAX, and every entry point must
 refuse to run when CUDA is asked for (``device=None``) but absent.
 """
 
@@ -38,9 +38,14 @@ def _golden_batch():
         os.remove(fp)
 
 
-def test_golden_snapshot_through_port():
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_golden_snapshot_through_port(device):
+    """The golden pipeline through the plain versions (``cpu``) and through
+    the kernels and the device library route on the card (``cuda``)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
     batch = _golden_batch()
-    dev = "cpu"
+    dev = device
     aligned = st.adaptor_align(ADAPTOR1, ADAPTOR2, reads=batch, tolerance=250, device=dev)
     umis = aligned["adaptor1"]["subseq"]["Sub2"]
     groups = st.umi_group(umis, threshold1=2, device=dev)
@@ -101,18 +106,6 @@ def test_default_device_needs_cuda():
     for call in _entry_points(batch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
-
-
-def test_chip_smoke_refuses_without_cuda():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    out = subprocess.run(
-        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
-        capture_output=True, text=True, timeout=120,
-    )
-    assert out.returncode != 0
-    assert "no CUDA device" in out.stderr
-    assert '"ok"' not in out.stdout
 
 
 def test_native_library_builds_into_package():

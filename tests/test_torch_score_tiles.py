@@ -316,8 +316,8 @@ def test_launch_groups_bound_the_scratch(monkeypatch, max_segments, slot_budget,
 
 @pytest.mark.parametrize("ref,nslots", [(ADAPTOR2, 2), (BARCODE, 2), (ADAPTOR1, 4), (LONG, 7)])
 def test_cost_slots_are_all_the_planes_the_dp_reads(ref, nslots):
-    """The cost slots that chip_smoke.py counts as the kernels' compulsory
-    reads: with every other slot of both planes poisoned, the plain DP
+    """The cost slots that benchmark/roofline.py counts as kernels C and D's
+    compulsory reads: with every other slot of both planes poisoned, the plain DP
     gives the same bits.  A reference of ACGT selects one match and one
     mismatch slot."""
     _, tb = _batch(len(ref), n=40)

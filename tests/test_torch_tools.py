@@ -397,3 +397,63 @@ def test_kernel_turns_needs_the_card_and_each_root_package(tmp_path):
         kernel_turns.run_root(str(ROOT))
     with pytest.raises(RuntimeError, match="turn 0"):
         kernel_turns.main([str(tmp_path)])
+
+
+def _same(a, b) -> bool:
+    """Equal values, through tuples, lists, dicts, tensors and arrays."""
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(_same, a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    return a == b
+
+
+def test_kernel_turns_record_round_trip(tmp_path, monkeypatch):
+    """``--record``'s pass on the CPU: kernel B's launch arguments and the
+    merge waves come back through ``--shapes``' reader as they were saved,
+    and kernel B's plain version and the wave path give on them what they
+    gave in the pass (the waves on their cut-down libraries)."""
+    import sarlacc_tpu_torch as st
+    from sarlacc_tpu_torch.api import msa as api_msa
+    from sarlacc_tpu_torch.ops import msa as ops_msa
+    from sarlacc_tpu_torch.ops.cuda_msa import banded_pair_plain
+    from sarlacc_tpu_torch.tools import kernel_turns
+    from sarlacc_tpu_torch.tools.workload import build_workload
+
+    seen = {"B": {}, "E": {}}
+    pair, wave = ops_msa.banded_pair, api_msa.merge_wave_from_library
+
+    def seen_pair(*args):
+        out = pair(*args)
+        seen["B"].setdefault(f"pipeline:P{int(args[0].shape[0])}xR{args[10]}xW{args[11]}", out)
+        return out
+
+    def seen_wave(lib, descs, rows, W):
+        out = wave(lib, descs, rows, W)
+        seen["E"].setdefault(f"pipeline:E:P{len(descs)}xR{rows}xW{W}", out)
+        return out
+
+    monkeypatch.setattr(ops_msa, "banded_pair", seen_pair)
+    monkeypatch.setattr(api_msa, "merge_wave_from_library", seen_wave)
+    path = str(tmp_path / "shapes.pt")
+    saved = kernel_turns.record(path, device="cpu",
+                                workload=build_workload(6, (3, 6), (200, 400), seed=3))
+    assert saved["B"] and saved["E"]
+    assert saved.keys() == seen.keys()
+    assert all(saved[k].keys() == seen[k].keys() for k in saved)
+    assert ops_msa.banded_pair is seen_pair and api_msa.merge_wave_from_library is seen_wave
+
+    cases = kernel_turns._inputs(torch, st, torch.device("cpu"), path, "BE")
+    for name, args in saved["B"].items():
+        which, back = cases[f"B:{name}"]
+        assert which == "B" and _same(back, args), name
+        assert _same(tuple(banded_pair_plain(*back)), tuple(seen["B"][name])), name
+    for name, rec in saved["E"].items():
+        which, back = cases[f"{name}:wave"]
+        assert which == "E" and _same(back, rec), name
+        lib, descs, rows, W = back
+        assert _same(ops_msa.merge_wave_from_library(lib, descs, rows, W), seen["E"][name]), name

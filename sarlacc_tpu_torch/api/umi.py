@@ -7,7 +7,9 @@ on the device (:func:`..ops.levenshtein.lev2_matrix`); from
 :data:`SPARSE_MIN` sequences up, duplicates collapse and the sparse search
 (:func:`..ops.levenshtein.lev2_neighbor_pairs`: the native symmetric-delete
 filter, or the row-block scan on the device where the filter's heuristics
-fail) emits only surviving pairs.  Neighbour lists follow
+fail) emits only surviving pairs.  A pre-group grouped by two UMIs at that
+size builds and intersects its neighbour lists on the device
+(:func:`_dual_sparse_csr`).  Neighbour lists follow
 the trie's DFS order (lexicographic over A<C<G<T<N, prefixes first,
 insertion order within duplicates — sorted_trie.cpp:285-296), so the native
 greedy clusterer produces the reference's clusters.  Indices are 0-based.
@@ -25,7 +27,9 @@ strings; the counters ``umi.route.dense`` (dense searches),
 :func:`..ops.levenshtein.lev2_neighbor_pairs`, ``umi.route.filter`` and
 ``umi.route.rowblock`` count the routes taken; the duplicate collapse
 counts ``unique_rows.packed`` (rows packed into base-6 words) or
-``unique_rows.fallback`` (``np.unique(axis=0)``).
+``unique_rows.fallback`` (``np.unique(axis=0)``); the intersection on the
+device counts ``umi.intersect.device`` (pre-groups), ``umi.intersect.entries``
+(UMI2's read-level entries tested) and ``umi.intersect.kept``.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from ..core.encode import SeqBatch
 from ..core.quality import get_encoding
@@ -97,50 +102,99 @@ def _dfs_order(codes: np.ndarray, lengths: np.ndarray) -> np.ndarray:
 def _neighbor_csr(
     codes: np.ndarray, lengths: np.ndarray, limit: int, device
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Thresholded neighbour lists as CSR (flat int32, offsets int64).
-
-    Small n: the dense distance matrix (one threshold pass).  Large n:
-    duplicate strings collapse first, then the sparse search emits only
-    surviving (i, j) pairs; the n x n matrix never exists.
-    """
+    """Thresholded neighbour lists of a pre-group under :data:`SPARSE_MIN`
+    strings, from the dense distance matrix (one threshold pass), as CSR
+    (flat int32, offsets int64)."""
     n = codes.shape[0]
-    if n < SPARSE_MIN:
-        count("umi.route.dense")
-        with profiler("umi.scan", items=n):
-            mat = lev2_matrix(codes, lengths, device=device)
-        with profiler("umi.csr", items=n):
-            adj = mat <= 2 * int(limit)
-            order = _dfs_order(codes, lengths)
-            A = adj[order].T  # [query, rank]
-            q_arr, rank_arr = np.nonzero(A)  # row-major: q asc, rank asc
-            flat = order[rank_arr].astype(np.int32)
-            offsets = np.concatenate(
-                [[0], np.cumsum(A.sum(axis=1, dtype=np.int64))]
-            )
-        return flat, offsets
-
-    u_codes, inv, cnt, u_lens, qi, qj = _unique_pairs(codes, lengths, limit, device)
+    count("umi.route.dense")
+    with profiler("umi.scan", items=n):
+        mat = lev2_matrix(codes, lengths, device=device)
     with profiler("umi.csr", items=n):
-        m = u_codes.shape[0]
-        ua, va = _dfs_pairs(u_codes, u_lens, qi, qj)
-        u_deg = np.bincount(ua, minlength=m)
-        u_off = np.concatenate([[0], np.cumsum(u_deg)])
+        adj = mat <= 2 * int(limit)
+        order = _dfs_order(codes, lengths)
+        A = adj[order].T  # [query, rank]
+        _, rank_arr = np.nonzero(A)  # row-major: q asc, rank asc
+        flat = order[rank_arr].astype(np.int32)
+        offsets = np.concatenate([[0], np.cumsum(A.sum(axis=1, dtype=np.int64))])
+    return flat, offsets
 
-        # Reads per unique, index order (== DFS order within a duplicate block:
-        # the stable lexsort keeps equal strings in index order).
-        _, _, reads_of = _reads_by_unique(inv, cnt)
 
-        # Expand each unique-level neighbour v to its reads R_v.
-        L_flat, e_cum = reads_of(va)
-        L_flat = L_flat.astype(np.int32)
-        exp_start_u = e_cum[u_off[:-1]]
-        exp_end_u = e_cum[u_off[1:]]
+def _both_ways(qi: np.ndarray, qj: np.ndarray, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both orientations of the unique-level pairs ``qi <= qj`` on ``dev``,
+    the diagonal once where the search emitted it: (ua, va) int64."""
+    qi = torch.as_tensor(qi, device=dev).long()
+    qj = torch.as_tensor(qj, device=dev).long()
+    off_diag = qi != qj
+    return torch.cat([qi, qj[off_diag]]), torch.cat([qj, qi[off_diag]])
 
-        # Every read of unique u shares u's expanded list.
-        deg_r = (exp_end_u - exp_start_u)[inv]
-        offsets = np.concatenate([[0], np.cumsum(deg_r)])
-        offs_r = np.repeat(exp_start_u[inv] - offsets[:-1], deg_r)
-        flat = L_flat[offs_r + np.arange(int(offsets[-1]))]
+
+def _dual_sparse_csr(
+    c1: np.ndarray, l1: np.ndarray, threshold1: int,
+    c2: np.ndarray, l2: np.ndarray, threshold2: int, device,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Two-UMI neighbour lists of a pre-group of :data:`SPARSE_MIN` reads
+    or more, built and intersected on ``device``: CSR (flat int32, offsets
+    int64) on the host.
+
+    A read's list is UMI2's (umi_group.cpp:85-100): the reads of its UMI2
+    unique string's neighbours in trie DFS order, each string's reads in
+    index order, kept where the read is also a UMI1 neighbour.  The reads
+    of one string form a block, so s lies in r's UMI1 list exactly when
+    u1(s) neighbours u1(r): UMI1 is tested at the unique level, against
+    its sorted pair keys, and its read-level list never exists.  Integer
+    arithmetic on unique keys throughout, so no step needs a stable sort.
+    """
+    n = c1.shape[0]
+    u1, inv1, _, _, qi1, qj1 = _unique_pairs(c1, l1, threshold1, device)
+    with profiler("umi.csr", items=n):
+        m1 = u1.shape[0]
+        a, b = _both_ways(qi1, qj1, device)
+        keys1 = torch.sort(a * m1 + b).values
+        inv1 = torch.as_tensor(inv1, device=device).long()
+
+    u2, inv2, cnt2, ul2, qi2, qj2 = _unique_pairs(c2, l2, threshold2, device)
+    with profiler("umi.csr", items=n):
+        m2 = u2.shape[0]
+        urank = np.empty(m2, np.int64)
+        urank[_dfs_order(u2, ul2)] = np.arange(m2)
+        ua, va = _both_ways(qi2, qj2, device)
+        by_rank = torch.argsort(ua * m2 + torch.as_tensor(urank, device=device)[va])
+        ua, va = ua[by_rank], va[by_rank]
+        inv2 = torch.as_tensor(inv2, device=device).long()
+        cnt2 = torch.as_tensor(cnt2, device=device).long()
+        reads = torch.arange(n, device=device)
+        by_uid = torch.argsort(inv2 * n + reads)  # each string's reads, index order
+        uid_off = torch.cumsum(cnt2, 0) - cnt2
+        # Each string's list at the string level: its neighbours' reads.
+        lens = cnt2[va]
+        e_cum = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+        u_off = torch.cat([lens.new_zeros(1), torch.cumsum(torch.bincount(ua, minlength=m2), 0)])
+        exp_start = e_cum[u_off[:-1]]
+        deg_r = (e_cum[u_off[1:]] - exp_start)[inv2]
+        size_e, total = torch.stack([e_cum[-1], deg_r.sum()]).tolist()
+        L_flat = by_uid[
+            torch.repeat_interleave(uid_off[va] - e_cum[:-1], lens, output_size=size_e)
+            + torch.arange(size_e, device=device)
+        ]
+        # Every read of a string shares the string's list.
+        rq = torch.repeat_interleave(reads, deg_r, output_size=total)
+        r_off = torch.cumsum(deg_r, 0) - deg_r
+        flat2 = L_flat[torch.arange(total, device=device) + (exp_start[inv2] - r_off)[rq]]
+
+    with profiler("umi.intersect", items=n):
+        k = inv1[rq] * m1 + inv1[flat2]
+        if keys1.numel():
+            at = torch.searchsorted(keys1, k).clamp_(max=keys1.numel() - 1)
+            keep = keys1[at] == k
+        else:
+            keep = torch.zeros_like(k, dtype=torch.bool)
+        flat = flat2[keep].int().cpu().numpy()
+        offsets = torch.cat([
+            reads.new_zeros(1), torch.cumsum(torch.bincount(rq[keep], minlength=n), 0)
+        ]).cpu().numpy()
+    count("umi.intersect.device")
+    count("umi.intersect.entries", total)
+    count("umi.intersect.kept", flat.size)
     return flat, offsets
 
 
@@ -228,6 +282,22 @@ def _group_large_single(
         ]
 
 
+def _intersect_dense(flat, offs, flat2, offs2):
+    """UMI2's lists in UMI2-query emission order, membership-tested against
+    UMI1's (umi_group.cpp:85-100), on the host: the (query, member) keys
+    of the UMI2 lists looked up in the sorted keys of the UMI1 lists."""
+    n = offs.size - 1
+    with profiler("umi.intersect", items=n):
+        rq1 = np.repeat(np.arange(n, dtype=np.int64), np.diff(offs))
+        rq2 = np.repeat(np.arange(n, dtype=np.int64), np.diff(offs2))
+        k1 = np.sort(rq1 * n + flat.astype(np.int64))
+        k2 = rq2 * n + flat2.astype(np.int64)
+        keep = np.zeros(k2.size, bool)
+        if k1.size:
+            keep = k1[np.minimum(np.searchsorted(k1, k2), k1.size - 1)] == k2
+        return flat2[keep], np.concatenate([[0], np.cumsum(np.bincount(rq2[keep], minlength=n))])
+
+
 def _group_one(
     c1: np.ndarray,
     l1: np.ndarray,
@@ -245,25 +315,13 @@ def _group_one(
     if c2 is None and curn >= SPARSE_MIN:
         # Single-UMI scale path: cluster on the collapsed unique graph.
         return _group_large_single(c1, l1, threshold1, device)
-
-    flat, offs = _neighbor_csr(c1, l1, threshold1, device)
-    if c2 is not None:
-        flat2, offs2 = _neighbor_csr(c2, l2, threshold2, device)
-        # UMI2-query emission order, membership-tested against UMI1
-        # (umi_group.cpp:85-100) — vectorized as (query, member) keys of
-        # the UMI2 list looked up in the sorted keys of the UMI1 list.
-        with profiler("umi.intersect", items=curn):
-            rq1 = np.repeat(np.arange(curn, dtype=np.int64), np.diff(offs))
-            rq2 = np.repeat(np.arange(curn, dtype=np.int64), np.diff(offs2))
-            k1 = np.sort(rq1 * curn + flat.astype(np.int64))
-            k2 = rq2 * curn + flat2.astype(np.int64)
-            keep = np.zeros(k2.size, bool)
-            if k1.size:
-                keep = k1[np.minimum(np.searchsorted(k1, k2), k1.size - 1)] == k2
-            flat = flat2[keep]
-            offs = np.concatenate(
-                [[0], np.cumsum(np.bincount(rq2[keep], minlength=curn))]
-            )
+    if curn >= SPARSE_MIN:
+        # Two UMIs at scale: lists built and intersected on the device.
+        flat, offs = _dual_sparse_csr(c1, l1, threshold1, c2, l2, threshold2, device)
+    else:
+        flat, offs = _neighbor_csr(c1, l1, threshold1, device)
+        if c2 is not None:
+            flat, offs = _intersect_dense(flat, offs, *_neighbor_csr(c2, l2, threshold2, device))
     with profiler("umi.cluster", items=curn):
         return [np.asarray(cl, dtype=np.int64) for cl in greedy_cluster_csr(flat, offs)]
 

@@ -1464,6 +1464,38 @@ def test_rowblock_scan_reads_back_twice(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_dual_sparse_lists_on_card_match_cpu(cuda_device, monkeypatch):
+    """Two UMIs over 3 000 reads of 600 strings each, past ``SPARSE_MIN``
+    (forced to 64): the neighbour lists built and intersected on the card
+    equal the same call's on the CPU element for element, the groups
+    equal the CPU's, and the pre-group counts one device intersection."""
+    from sarlacc_tpu_torch.api import umi
+    from sarlacc_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(23)
+    batches = []
+    for _ in range(2):
+        codes, lengths = _umi_rows(rng, 600, 22, 0.02, 16)
+        pick = rng.integers(0, 600, 3000)
+        batches.append(SeqBatch(codes[pick].astype(np.int8), lengths[pick]))
+    (c1, l1), (c2, l2) = ((b.codes.astype(np.int32), b.lengths) for b in batches)
+    got = umi._dual_sparse_csr(c1, l1, 3, c2, l2, 3, cuda_device)
+    want = umi._dual_sparse_csr(c1, l1, 3, c2, l2, 3, torch.device("cpu"))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert want[0].size > 3000
+
+    monkeypatch.setattr(umi, "SPARSE_MIN", 64)
+    prof = profiling.PipelineProfiler()
+    monkeypatch.setattr(profiling, "_GLOBAL", prof)
+    on_card = umi.umi_group(batches[0], 3, batches[1], 3, device=cuda_device)
+    assert prof.counters["umi.intersect.device"] == 1
+    assert prof.counters["umi.intersect.kept"] == want[0].size
+    on_cpu = umi.umi_group(batches[0], 3, batches[1], 3, device="cpu")
+    assert [g.tolist() for g in on_card] == [g.tolist() for g in on_cpu]
+
+
+@pytest.mark.cuda
 def test_plain_scans_never_see_a_card_tensor(cuda_device, monkeypatch):
     """adaptor_align, quality_align, multi_read_align (device library) and
     umi_group (the dense matrix and the row-block scan) on the card launch

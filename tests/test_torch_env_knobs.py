@@ -123,22 +123,23 @@ def test_sparse_min_malformed_warns_and_keeps_default(monkeypatch, value):
         assert _reload_umi(monkeypatch, value) == 2048
 
 
-def _csr_lists(codes, lengths, limit):
-    flat, offs = umi_mod._neighbor_csr(codes, lengths, limit, CPU)
+def _csr_lists(flat, offs):
     return [flat[offs[i] : offs[i + 1]].tolist() for i in range(len(offs) - 1)]
 
 
 @pytest.mark.parametrize("limit", [2, 5])
-def test_sparse_neighbor_lists_match_dense_path(monkeypatch, limit):
+def test_sparse_neighbor_lists_match_dense_path(limit):
     """The CSR neighbour lists (dedup, expansion, DFS order) are the same
-    on the sparse path as on the dense one, and JAX's."""
+    on the sparse path as on the dense one, and JAX's.  The sparse lists
+    come from the two-UMI sparse path given one UMI twice, whose
+    intersection then keeps every entry."""
     rng = np.random.default_rng(42 + limit)
     seqs = rand_seqs(rng, 30, 4, 6, p_n=0.05) + ["ACGT"] * 8 + ["N", "N"]
     codes, lengths = encode_batch(seqs)
     codes = codes.astype(np.int32)
-    dense = _csr_lists(codes, lengths, limit)
-    monkeypatch.setattr(umi_mod, "SPARSE_MIN", 1)
-    sparse = _csr_lists(codes, lengths, limit)
+    dense = _csr_lists(*umi_mod._neighbor_csr(codes, lengths, limit, CPU))
+    sparse = _csr_lists(*umi_mod._dual_sparse_csr(codes, lengths, limit, codes, lengths, limit,
+                                                  CPU))
     assert sparse == dense
     assert sparse == [list(map(int, x)) for x in jax_neighbor_lists(codes, lengths, limit)]
 

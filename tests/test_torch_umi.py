@@ -237,6 +237,86 @@ def test_umi_group_dual_wide_equal_np_unique(monkeypatch):
     assert [g.tolist() for g in got] == [g.tolist() for g in want]
 
 
+def _dual_inputs(rng, width, kind):
+    """Two UMIs of about ``width`` bases for the same ~400 reads: families
+    with heavy duplicates (whole reads repeated, and UMI1 strings shared by
+    reads of other UMI2 strings), a few UMIs with 7 Ns (a doubled
+    self-distance of 7, past 2 x threshold for thresholds up to 3, so not
+    their own neighbours); ``kind="isolated"`` gives UMI1 strings so far
+    apart that UMI1's search emits no off-diagonal pair."""
+    u1 = _umis(rng, 30, 8, length=width, n_rate=0.01)
+    u2 = _umis(rng, 30, 8, length=width, n_rate=0.01)
+    n = min(len(u1), len(u2))
+    if kind == "isolated":
+        u1 = ["".join(rng.choice(list("ACGT"), width)) for _ in range(n // 6)] * 6
+        n = len(u1)
+    pick = rng.integers(0, n, 150)
+    u1 = u1[:n] + [u1[i] for i in pick] + [u1[i] for i in rng.integers(0, n, 40)]
+    u2 = u2[:n] + [u2[i] for i in pick] + [u2[i] for i in rng.integers(0, n, 40)]
+    for u in (u1, u2):
+        for i in rng.integers(0, len(u), 6):
+            u[i] = "N" * 7 + u[i][7:]
+    perm = rng.permutation(len(u1))
+    return [u1[i] for i in perm], [u2[i] for i in perm]
+
+
+def _np_dual_csr(c1, l1, t1, c2, l2, t2):
+    """The two-UMI sparse neighbour lists in numpy, read by read: each
+    UMI's duplicates collapsed by ``np.unique(axis=0)``, the unique pairs
+    from the sparse search, a string's neighbours in trie DFS order, each
+    expanded to its reads in index order, every read sharing its string's
+    list; then UMI2's list of each read kept where UMI1's list of that
+    read holds the entry.  (flat int32, offsets int64)."""
+    n = c1.shape[0]
+    lists = []
+    for codes, lengths, t in ((c1, l1, t1), (c2, l2, t2)):
+        u, first, inv, _ = _np_unique_rows(codes)
+        inv = inv.reshape(-1)
+        ul = lengths[first].astype(np.int32)
+        qi, qj = lev2_neighbor_pairs(u.astype(np.int32), ul, t, assume_unique=True, device="cpu")
+        off = qi != qj
+        ua = np.concatenate([qi, qj[off]]).astype(np.int64)
+        va = np.concatenate([qj, qi[off]]).astype(np.int64)
+        urank = np.empty(len(u), np.int64)
+        urank[umi_mod._dfs_order(u, ul)] = np.arange(len(u))
+        reads_of = [np.flatnonzero(inv == v) for v in range(len(u))]
+        of_string = [
+            np.concatenate([reads_of[v] for v in sorted(va[ua == w], key=lambda v: urank[v])]
+                           + [np.zeros(0, np.int64)])
+            for w in range(len(u))
+        ]
+        lists.append([of_string[inv[r]] for r in range(n)])
+    kept = [b[np.isin(b, a)] for a, b in zip(*lists)]
+    flat = np.concatenate(kept).astype(np.int32)
+    return flat, np.concatenate([[0], np.cumsum([k.size for k in kept])]).astype(np.int64)
+
+
+@pytest.mark.parametrize("width", [18, 30])
+@pytest.mark.parametrize("t1,t2,kind", [(3, 3, "families"), (3, 2, "families"),
+                                        (1, 1, "families"), (1, 1, "isolated")])
+def test_dual_sparse_csr_equals_numpy(width, t1, t2, kind):
+    """The two-UMI sparse path's lists, built and intersected with torch on
+    the CPU, equal a numpy transliteration of read-level lists and their
+    intersection, element for element: duplicates, N strings that are not
+    their own neighbours, and a UMI1 with no off-diagonal hits."""
+    rng = np.random.default_rng(width * 100 + t1 * 10 + t2 + len(kind))
+    u1, u2 = _dual_inputs(rng, width, kind)
+    c1, l1 = encode_batch(u1)
+    c2, l2 = encode_batch(u2)
+    if kind == "isolated":
+        u, first, _, _ = _np_unique_rows(c1)
+        qi, qj = lev2_neighbor_pairs(u.astype(np.int32), l1[first], t1, assume_unique=True,
+                                     device="cpu")
+        assert (qi == qj).all() and qi.size
+    flat, offs = umi_mod._dual_sparse_csr(c1.astype(np.int32), l1, t1, c2.astype(np.int32), l2,
+                                          t2, torch.device("cpu"))
+    want_flat, want_offs = _np_dual_csr(c1, l1, t1, c2, l2, t2)
+    assert flat.dtype == np.int32 and offs.dtype == np.int64
+    np.testing.assert_array_equal(offs, want_offs)
+    np.testing.assert_array_equal(flat, want_flat)
+    assert np.diff(offs).min() == 0  # an N read that is no one's neighbour keeps an empty list
+
+
 @pytest.mark.parametrize("length,threshold", [(30, 2), (20, 3)])
 def test_umi_group_rowblock_equal(monkeypatch, length, threshold):
     """The sparse path forced (``SPARSE_MIN`` = 1 on both sides, as

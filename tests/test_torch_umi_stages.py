@@ -138,3 +138,27 @@ def test_unique_rows_counters(fresh, monkeypatch, sparse_min, packed):
     c = fresh.counters
     assert c.get("unique_rows.packed", 0) == packed
     assert "unique_rows.fallback" not in c
+
+
+INTERSECT = ("umi.intersect.device", "umi.intersect.entries", "umi.intersect.kept")
+
+
+@pytest.mark.parametrize("sparse_min,two", [(16, True), (4096, True), (16, False)])
+def test_intersect_counters(fresh, monkeypatch, sparse_min, two):
+    """The two-UMI sparse path counts one device intersection a pre-group,
+    UMI2's read-level entries tested (the lists the dense route builds)
+    and the entries kept (the dense route's intersection); the dense
+    route and the single-UMI scale path count none of them."""
+    monkeypatch.setattr(umi, "SPARSE_MIN", sparse_min)
+    u1, u2 = _families(10, 5, 18, 6)
+    umi.umi_group(u1, threshold1=3, umi2=u2 if two else None, threshold2=3, device="cpu")
+    c = fresh.counters
+    if sparse_min > len(u1) or not two:
+        assert not set(INTERSECT) & set(c)
+        return
+    c1, c2 = (b.codes.astype(np.int32) for b in (u1, u2))
+    flat1, offs1 = umi._neighbor_csr(c1, u1.lengths, 3, "cpu")
+    flat2, offs2 = umi._neighbor_csr(c2, u2.lengths, 3, "cpu")
+    kept, _ = umi._intersect_dense(flat1, offs1, flat2, offs2)
+    assert c["umi.intersect.device"] == 1
+    assert c["umi.intersect.entries"] == offs2[-1] > c["umi.intersect.kept"] == kept.size

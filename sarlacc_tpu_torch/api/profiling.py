@@ -2,20 +2,25 @@
 ``homopolymer_matcher``.
 
 Parity with R/errorFinder.R + src/find_errors.cpp and
-R/homopolymerFinder.R / R/homopolymerMatcher.R + src/homopolymer.cpp.  These
-are cheap host-side RLE walks over pairwise alignment strings (the heavy
-alignment itself comes from :func:`.quality_align`).
-
-Copied unchanged from ``sarlacc_tpu/api/profiling.py`` (numpy only, no JAX).
+R/homopolymerFinder.R / R/homopolymerMatcher.R + src/homopolymer.cpp.
+``error_finder`` and ``homopolymer_matcher`` put the alignments' gapped
+strings on a device as byte planes and tally from those with whole-array
+operations (:mod:`..ops.profile`): on the card that ran ``quality_align``
+for its frames, else on the CPU, or on the ``device`` given.  They give
+the frames of ``refimpl/errors.py`` and ``refimpl/homopolymer.py``, which
+stay as the tests' oracle.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.frame import Frame
-from ..refimpl.errors import find_errors
-from ..refimpl.homopolymer import find_homopolymers, match_homopolymers
+from ..device import resolve_device
+from ..ops.profile import Planes, alignment_planes, walk_errors, walk_homopolymers
+from ..refimpl.homopolymer import find_homopolymers
+from ..utils.profiling import count, profiler
 
 __all__ = ["error_finder", "homopolymer_finder", "homopolymer_matcher"]
 
@@ -36,41 +41,50 @@ def _extract_alignment_strings(alignments) -> tuple[list[str], list[str]]:
     return list(ref), list(qry)
 
 
-def error_finder(alignments) -> Frame:
+def _planes(alignments, device) -> Planes:
+    """The alignments' strings as byte planes on ``device``; None: the
+    device of the ``quality_align`` call that made the frame, else the CPU."""
+    if device is None:
+        device = getattr(alignments, "device", None) or "cpu"
+    return alignment_planes(*_extract_alignment_strings(alignments), resolve_device(device))
+
+
+def error_finder(alignments, device=None) -> Frame:
     """Per-reference-position substitution/deletion/insertion profile.
 
     Returns a Frame with one row per de-gapped reference position **plus a
     one-past-the-end row** (R/errorFinder.R:20-38) holding base identity,
     A/C/G/T/deletion counts, and per-row insertion length lists; metadata
     carries the 4x4 ``transition`` matrix (base -> observed counts,
-    R/errorFinder.R:39-44).
+    R/errorFinder.R:39-44).  ``device``: where to tally (see the module).
     """
-    ref_align, read_align = _extract_alignment_strings(alignments)
-    res = find_errors(ref_align, read_align)
+    with profiler("profile.errors"):
+        res = walk_errors(_planes(alignments, device))
 
-    npos = len(res["base"])
-    # One-past-end row for insertions at the end of the reference.
-    base = list(res["base"]) + [""]
-    cols = {"base": base}
-    for b in _BASE_ORDER:
-        cols[b] = np.concatenate([res[b], [0]]).astype(np.int64)
-    cols["deletion"] = np.concatenate([res["deletion"], [0]]).astype(np.int64)
+        npos = len(res["base"])
+        # One-past-end row for insertions at the end of the reference.
+        cols = {"base": list(res["base"]) + [""]}
+        for b in _BASE_ORDER:
+            cols[b] = np.concatenate([res[b], [0]]).astype(np.int64)
+        cols["deletion"] = np.concatenate([res["deletion"], [0]]).astype(np.int64)
 
-    insertions: list[list[int]] = [[] for _ in range(npos + 1)]
-    for pos, ln in zip(res["insertion_pos"], res["insertion_len"]):
-        insertions[int(pos)].append(int(ln))
-    cols["insertion"] = insertions
+        # Each row's insertion lengths in the order find_errors lists them.
+        pos = np.asarray(res["insertion_pos"], np.int64)
+        flat = np.asarray(res["insertion_len"], np.int64)[np.argsort(pos, kind="stable")].tolist()
+        ends = np.cumsum(np.bincount(pos, minlength=npos + 1)).tolist()
+        cols["insertion"] = [flat[e0:e1] for e0, e1 in zip([0] + ends[:-1], ends)]
+        out = Frame(cols)
 
-    out = Frame(cols)
-
-    # Transition matrix: true base (rows) x observed base (columns).
-    trans = np.zeros((4, 4), dtype=np.int64)
-    for i, b in enumerate(res["base"]):
-        r = _BASE_ORDER.find(b)
-        if r >= 0:
-            for c, ob in enumerate(_BASE_ORDER):
-                trans[r, c] += res[ob][i]
-    out.metadata["transition"] = trans
+        # Transition matrix: true base (rows) x observed base (columns).
+        points = np.frombuffer("".join(res["base"]).encode("utf-32-le"), np.uint32)
+        row = np.full(points.size, -1, np.int64)
+        for r, b in enumerate(_BASE_ORDER):
+            row[points == ord(b)] = r
+        known = row >= 0
+        trans = np.zeros((4, 4), dtype=np.int64)
+        for c, ob in enumerate(_BASE_ORDER):
+            np.add.at(trans[:, c], row[known], np.asarray(res[ob], np.int64)[known])
+        out.metadata["transition"] = trans
     return out
 
 
@@ -94,44 +108,36 @@ def homopolymer_finder(seqs) -> list[Frame]:
     return out
 
 
-def homopolymer_matcher(alignments) -> Frame:
+def homopolymer_matcher(alignments, device=None) -> Frame:
     """Reference homopolymers with observed per-read run lengths.
 
     Returns one row per reference homopolymer occurrence over all reads:
     start position (1-based, de-gapped), and the sorted observed lengths
     aggregated per position in metadata-free columns
     (R/homopolymerMatcher.R:19-34 collapses to unique positions with an
-    observed-length list; we do the same).
+    observed-length list; we do the same).  Base and width are the first
+    alignment's reference's.  ``device``: where to tally (see the module).
     """
-    ref_align, read_align = _extract_alignment_strings(alignments)
-    idx, pos, rlen = match_homopolymers(ref_align, read_align)
+    with profiler("profile.homopolymers"):
+        planes = _planes(alignments, device)
+        _, pos, rlen = walk_homopolymers(planes)
+        count("profile.runs", pos.numel())
+        uniq, inv, per = torch.unique(pos, sorted=True, return_inverse=True, return_counts=True)
+        rlen = rlen[torch.argsort(inv * ((int(rlen.max()) if rlen.numel() else 0) + 1) + rlen)]
+        flat = rlen.cpu().tolist()
+        ends = np.cumsum(per.cpu().numpy()).tolist()
+        observed = [flat[a:b] for a, b in zip([0] + ends[:-1], ends)]
+        starts = uniq.cpu().numpy().astype(np.int64)
 
-    # Unique reference runs keyed by (start position); base/width from the
-    # first alignment's reference.
-    uniq = sorted(set(pos))
-    observed: dict[int, list[int]] = {p: [] for p in uniq}
-    for p, l in zip(pos, rlen):
-        observed[p].append(int(l))
-    for p in uniq:
-        observed[p].sort()
+        runs = _reference_runs(planes.reference)
+        hit = [runs.get(p, ("", 0)) for p in starts.tolist()]
+        return Frame(start=starts, width=np.asarray([w for _, w in hit], dtype=np.int64),
+                     base=[b for b, _ in hit], observed=observed)
 
-    # Base and width from the de-gapped reference of the first alignment.
-    bases, widths = {}, {}
-    if ref_align:
-        degapped = ref_align[0].replace("-", "")
-        at = 0
-        while at < len(degapped):
-            run = at
-            while run < len(degapped) and degapped[run] == degapped[at]:
-                run += 1
-            if run - at >= 2:
-                bases[at + 1] = degapped[at]
-                widths[at + 1] = run - at
-            at = run
 
-    return Frame(
-        start=np.asarray(uniq, dtype=np.int64),
-        width=np.asarray([widths.get(p, 0) for p in uniq], dtype=np.int64),
-        base=[bases.get(p, "") for p in uniq],
-        observed=[observed[p] for p in uniq],
-    )
+def _reference_runs(reference: str) -> dict:
+    """1-based start -> (base, width) of each homopolymer of ``reference``."""
+    ref = np.frombuffer(reference.encode(), np.uint8)
+    starts = np.flatnonzero(np.concatenate([[True], ref[1:] != ref[:-1]])) if ref.size else ref
+    widths = np.diff(np.append(starts, ref.size))
+    return {int(s) + 1: (reference[s], int(w)) for s, w in zip(starts, widths) if w >= 2}

@@ -1,7 +1,8 @@
 """Batched replay of the template backtrack over run-length directions.
 
 Counterpart of ``sarlacc_tpu/ops/backtrack.py`` (``qmap_walk_device``,
-``string_walk_device``, ``query_windows`` and ``assemble_strings``).
+``string_walk_device`` and ``query_windows``; its ``assemble_strings`` is
+``api/quality_align.py``'s decoding on the device).
 :func:`qmap_walk` and :func:`string_walk` walk every read at once, on the
 device of the direction planes: on CUDA tensors kernel G
 (:mod:`.cuda_backtrack`, one thread a read, one launch), on CPU tensors
@@ -17,7 +18,7 @@ import torch
 
 from . import cuda_backtrack
 
-__all__ = ["assemble_strings", "qmap_walk", "query_windows", "string_walk"]
+__all__ = ["qmap_walk", "query_windows", "string_walk"]
 
 #: Walk steps between checks for finished reads (each check syncs the host).
 _STEPS_PER_CHECK = 8
@@ -115,7 +116,7 @@ def _string_walk_plain(dirs: torch.Tensor, lengths: torch.Tensor, counts: dict |
     every read at once.  Per read, position t of the two [T] arrays
     (T = R + l1 + 1) holds the reference position (0 = gap) and the query
     position (0 = gap) of the t-th alignment column FROM THE END; ``ncols``
-    counts the columns.  Decode with :func:`assemble_strings`.  Positions
+    counts the columns (``api/quality_align.py`` turns them front to back).  Positions
     are int32 (the JAX package's int16 holds the same values below 32767).
 
     Returns (a_pos int32 [n_pad, T], b_pos int32 [n_pad, T], ncols int32
@@ -169,35 +170,6 @@ def _string_walk_plain(dirs: torch.Tensor, lengths: torch.Tensor, counts: dict |
         it += _STEPS_PER_CHECK
     _counted(counts)
     return oa[:, :T], ob[:, :T], t.to(torch.int32)
-
-
-def assemble_strings(a_pos, b_pos, ncols, refseq: str, seqs: list[str]):
-    """Emission arrays -> gapped (reference, query) strings + edit counts.
-
-    One fancy-index per side builds [N, T] byte planes; per read the first
-    ``ncols`` bytes, reversed, are the alignment (the walk emits back to
-    front).  Edits count differing columns (general_align.cpp:47-52).
-    Host numpy; takes numpy arrays or tensors.
-    """
-    a_pos = np.asarray(a_pos, dtype=np.int64)
-    b_pos = np.asarray(b_pos, dtype=np.int64)
-    ncols = np.asarray(ncols, dtype=np.int64)
-    N, T = a_pos.shape
-    rbytes = np.frombuffer(("-" + refseq).encode(), dtype=np.uint8)
-    ra = rbytes[a_pos]  # [N, T] uint8
-    maxq = max((len(s) for s in seqs), default=0)
-    qmat = np.full((N, maxq + 1), ord("-"), np.uint8)
-    for i, s in enumerate(seqs):
-        if s:
-            qmat[i, 1 : len(s) + 1] = np.frombuffer(s.encode(), dtype=np.uint8)
-    qa = qmat[np.arange(N)[:, None], np.clip(b_pos, 0, maxq)]
-    qa[b_pos == 0] = ord("-")
-
-    live = np.arange(T)[None, :] < ncols[:, None]
-    edits = ((ra != qa) & live).sum(axis=1).astype(np.int64)
-    refalign = [ra[i, : ncols[i]][::-1].tobytes().decode() for i in range(N)]
-    qalign = [qa[i, : ncols[i]][::-1].tobytes().decode() for i in range(N)]
-    return refalign, qalign, edits
 
 
 def query_windows(

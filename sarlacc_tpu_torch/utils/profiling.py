@@ -38,7 +38,13 @@ chunks joined, adaptor2 flipped, the frame); ``align_and_extract``'s
 ``align.windows`` (the span and section query windows) and
 ``align.sections`` (the section subsequences); and
 ``get_adaptor_thresholds``'s ``calib.rows``, ``calib.scramble``,
-``calib.stack``, ``calib.strand`` and ``calib.threshold``.
+``calib.stack``, ``calib.strand`` and ``calib.threshold``;
+``quality_align``'s ``qalign.plan`` (the chunk plan), ``qalign.prepare``
+(the reads sent to the device, and each chunk cut from them),
+``qalign.dirs`` (kernel A a chunk), ``qalign.walk`` (the string walk a
+chunk, ending in its column count read back) and ``qalign.strings``; and
+``error_finder``'s ``profile.errors`` and ``homopolymer_matcher``'s
+``profile.homopolymers``.
 
 Counters (:func:`count`, ``PipelineProfiler.counters``) sum what the stages
 cannot time: ``msa.segments`` and ``msa.segments.host`` (segments of
@@ -50,7 +56,11 @@ seconds outside it), ``native.triplet.pool_s`` (the pool's wall) and
 ``native.triplet.straggler_s`` (each segment's slowest worker, summed);
 ``unique_rows.packed`` and ``unique_rows.fallback`` count the duplicate
 collapses that sorted packed base-6 words or fell back to
-``np.unique(axis=0)``.
+``np.unique(axis=0)``; ``qalign.chunks``, ``qalign.cells`` (reference
+length x the reads' DP rows), ``qalign.dir_bytes`` (kernel A's direction
+planes) and ``qalign.columns`` (alignment columns) count
+``quality_align``'s work, ``profile.runs`` the (read, reference
+homopolymer) pairs ``homopolymer_matcher`` measured.
 Only the thread that runs the entry point records stages and counters.
 
 ``msa.merge_pack`` is the JAX package's only stage with no counterpart: it

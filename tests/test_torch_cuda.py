@@ -1559,3 +1559,114 @@ def test_walk_extend_lev2_kernel_resources(cuda_device):
     for name, r in res.items():
         assert 0 < r["registers"] <= 255 and r["blocks_per_sm"] >= 1, name
         assert r["spill_bytes"] == 0, (name, r)
+
+
+# ---------------------------------------------------------------- error profiling
+
+
+def _amplicon_reads(rng, template: str, n: int):
+    """``n`` reads copying ``template`` with mockReads' errors (5%
+    substitutions, then 1% of bases deleted or repeated 2-5 times) and
+    Phred+33 qualities, one of them empty and one longer than the template."""
+    t = np.frombuffer(template.encode(), np.uint8)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    seqs = []
+    for _ in range(n - 2):
+        s = np.where(rng.random(t.size) < 0.05, acgt[rng.integers(0, 4, t.size)], t)
+        reps = np.where(rng.random(t.size) < 0.01, rng.choice([0, 2, 3, 4, 5], t.size), 1)
+        seqs.append(np.repeat(s, reps).tobytes().decode())
+    seqs += ["", template + "ACGT" * 40]
+    quals = [np.full(len(s), 33, np.uint8) + rng.integers(2, 40, len(s)).astype(np.uint8)
+             for s in seqs]
+    return SeqBatch.from_strings(seqs, [q.tobytes().decode() for q in quals])
+
+
+@pytest.mark.cuda
+def test_quality_align_chunk_past_2_31_cells(cuda_device):
+    """One kernel-A launch of quality_align's chunk shape at R 4 400 over
+    ~110 reads: more than 2^31 direction cells, several passes through the
+    hand-off scratch; directions and S equal to dp_align on the card, and
+    kernel G's emissions equal the plain walk's on the CPU for a sample of
+    lanes."""
+    from sarlacc_tpu_torch.ops.backtrack import _string_walk_plain, string_walk
+
+    rng = np.random.default_rng(24)
+    template = "".join(rng.choice(list("ACGT"), 4400))
+    batch = _amplicon_reads(rng, template, 110)
+    ad = prepare_adaptor(template, device=cuda_device)
+    codes, qidx, lengths = prepare_reads(batch, ad.tables, device=cuda_device)
+    l1, n_pad = plane_dims(*codes.shape)
+    assert 4400 * l1 * n_pad > 2**31 and cuda_align.dir_plan(4400, False, n_pad)[2] > 1
+    planes = build_cost_planes(codes, qidx, ad.match_tab, ad.mismatch_tab, l1, n_pad)
+    args = (ad.modes, encode_mask(ad.matched), 5.0, 1.0, *planes, False)
+    s_k, d_k = dir_kernel(*args)
+    s_p, d_p = dp_align(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(s_k, s_p)
+    assert torch.equal(d_k, d_p)
+    del d_p
+    a_k, b_k, n_k = string_walk(d_k, lengths)
+    lanes = torch.tensor([0, 1, 37, 64, 107, 108, 109, 300], device=cuda_device)
+    a_p, b_p, n_p = _string_walk_plain(d_k[:, :, lanes].cpu(), lengths[lanes[:7]].cpu())
+    assert torch.equal(n_k[lanes].cpu(), n_p)
+    for k in range(lanes.numel()):
+        m = int(n_p[k])
+        assert torch.equal(a_k[lanes[k], :m].cpu(), a_p[k, :m]), k
+        assert torch.equal(b_k[lanes[k], :m].cpu(), b_p[k, :m]), k
+
+
+@pytest.mark.cuda
+def test_quality_align_chunked_on_card_equals_one_launch(cuda_device, monkeypatch):
+    """300 reads against 500 bp: one launch (the whole batch fits) and
+    chunks of 64 lanes under a forced budget give the same frame."""
+    import importlib
+
+    import sarlacc_tpu_torch as st
+
+    qa_mod = importlib.import_module("sarlacc_tpu_torch.api.quality_align")
+    rng = np.random.default_rng(25)
+    template = "".join(rng.choice(list("ACGT"), 500))
+    batch = _amplicon_reads(rng, template, 300)
+    whole = st.quality_align(batch, template, device=cuda_device)
+    L = int(batch.lengths.max())
+    budget = 64 * qa_mod.lane_bytes(500, plane_dims(1, L)[0])
+    monkeypatch.setattr(qa_mod, "_plan_budget", lambda dev: budget)
+    chunked = st.quality_align(batch, template, device=cuda_device)
+    for col in ("score", "edit"):
+        np.testing.assert_array_equal(chunked[col], whole[col])
+    assert list(chunked["reference"]) == list(whole["reference"])
+    assert list(chunked["query"]) == list(whole["query"])
+
+
+@pytest.mark.cuda
+def test_profile_tallies_on_card_equal_refimpl(cuda_device):
+    """256 reads of the error-profiling cell's shape (4 400-bp template,
+    mockReads' errors): the tallies from the strings' planes on the card
+    equal find_errors and match_homopolymers, and error_finder and
+    homopolymer_matcher give the same frames on the card (a quality_align
+    frame tallies on its card) and on the CPU."""
+    import sarlacc_tpu_torch as st
+    from sarlacc_tpu_torch.ops.profile import alignment_planes, walk_errors, walk_homopolymers
+    from sarlacc_tpu_torch.refimpl.errors import find_errors
+    from sarlacc_tpu_torch.refimpl.homopolymer import match_homopolymers
+
+    rng = np.random.default_rng(26)
+    template = "".join(rng.choice(list("ACGT"), 4400))
+    out = st.quality_align(_amplicon_reads(rng, template, 256), template, device=cuda_device)
+    assert out.device.type == "cuda"
+    refs, queries = list(out["reference"]), list(out["query"])
+    planes = alignment_planes(refs, queries, cuda_device)
+    want = find_errors(refs, queries)
+    got = walk_errors(planes)
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)
+    for got_col, want_col in zip(walk_homopolymers(planes), match_homopolymers(refs, queries)):
+        assert got_col.is_cuda and got_col.cpu().tolist() == list(want_col)
+    for fn in (st.error_finder, st.homopolymer_matcher):
+        a, b = fn(out), fn((refs, queries), device="cpu")
+        assert a.colnames == b.colnames
+        for col in a.colnames:
+            x, y = a[col], b[col]
+            assert (np.array_equal(x, y) if isinstance(y, np.ndarray) else list(x) == list(y)), col
+        for key in b.metadata:
+            np.testing.assert_array_equal(a.metadata[key], b.metadata[key])

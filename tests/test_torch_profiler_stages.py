@@ -50,17 +50,23 @@ JAX_ONLY = {"msa.merge_pack"}
 #: scrambles; ``calib.stack``: the stacked scrambles uploaded;
 #: ``calib.strand``: the scrambles' strand; ``calib.threshold``: the two
 #: FDR thresholds; ``umi.*``: ``umi_group``'s masking, duplicate collapse,
-#: neighbour search, neighbour lists, two-UMI intersection and clusterer.
+#: neighbour search, neighbour lists, two-UMI intersection and clusterer;
+#: ``qalign.*``: ``quality_align``'s chunk plan, reads sent and cut into
+#: chunks, kernel A a chunk, the string walk a chunk and the strings;
+#: ``profile.*``: ``error_finder``'s and ``homopolymer_matcher``'s tallies.
 PORT_ONLY = {
     "adaptor.chunk", "adaptor.ends", "adaptor.stack", "adaptor.orient", "adaptor.assemble",
     "align.windows", "align.sections",
     "calib.rows", "calib.scramble", "calib.stack", "calib.strand", "calib.threshold",
     "umi.mask", "umi.unique", "umi.scan", "umi.csr", "umi.intersect", "umi.cluster",
+    "qalign.plan", "qalign.prepare", "qalign.dirs", "qalign.walk", "qalign.strings",
+    "profile.errors", "profile.homopolymers",
 }
 #: Port-only stages the pipeline run leaves out: its reads fit in one
-#: chunk, and it groups one UMI of a few reads on the dense route (no
-#: duplicate collapse, no second UMI).
-UNRUN = {"adaptor.chunk", "umi.unique", "umi.intersect"}
+#: chunk, it groups one UMI of a few reads on the dense route (no
+#: duplicate collapse, no second UMI), and it profiles no errors.
+UNRUN = {"adaptor.chunk", "umi.unique", "umi.intersect", "profile.errors",
+         "profile.homopolymers"}
 
 #: Stages whose ``calls`` count launches or chunks, which the port cuts its
 #: own way.  ``align.score_only``: the port scores every barcode, and every
